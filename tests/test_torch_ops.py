@@ -1,0 +1,154 @@
+"""The port's FFT layer, exact interpolator and GMRES against ipde_tpu.
+
+Inputs are made with numpy from a seed.  Tolerances are relative to the
+largest value compared: 1e-13 unless stated, since both sides compute the
+same sums in float64 with FFTs and matmuls that order them differently."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ipde_tpu.ops import fourier as jfourier
+from ipde_tpu.ops import interp as jinterp
+from ipde_tpu.ops.cx import Cx
+from ipde_tpu.ops.gmres import gmres as jgmres
+from ipde_tpu_torch.ops import fourier, interp
+from ipde_tpu_torch.ops.gmres import gmres
+
+
+def _close(got, want, rtol=1e-13):
+    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < rtol, err
+
+
+def _cx(c: torch.Tensor):
+    return Cx(jnp.asarray(c.real.numpy()), jnp.asarray(c.imag.numpy()))
+
+
+def test_fft2_and_inverse():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((96, 64))
+    jp, tp = jfourier.FourierPlan2D(96, 64), fourier.FourierPlan2D(96, 64)
+    jc, tc = jp.fft2(jnp.asarray(x)), tp.fft2(torch.as_tensor(x))
+    assert tc.dtype == torch.complex128
+    _close(tc.real, jc.re)
+    _close(tc.imag, jc.im)
+    sym = 1.0 / (1.0 + np.arange(64)[None, :] ** 2 + np.arange(96)[:, None])
+    _close(tp.ifft2_real(tc * torch.as_tensor(sym)),
+           jp.ifft2_real(Cx(jc.re * sym, jc.im * sym)))
+
+
+@pytest.mark.parametrize("n", [128, 513, 512])   # direct, odd, four-step
+def test_tangential_plan(n):
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal((7, n))
+    jtp, ttp = jfourier.make_tan_plan(n), fourier.make_tan_plan(n, "cpu")
+    xt = torch.as_tensor(x)
+    jc, tc = jfourier.tan_rfft(jnp.asarray(x), jtp), fourier.tan_rfft(xt, ttp)
+    _close(tc.real, jc.re)
+    _close(tc.imag, jc.im)
+    _close(fourier.tan_irfft(tc, ttp), jfourier.tan_irfft(jc, jtp))
+    # the derivative amplifies by up to n/2; its largest value is O(n)
+    _close(fourier.tan_deriv(xt, ttp), jfourier.tan_deriv(jnp.asarray(x), jtp))
+
+
+def test_frequency_helpers():
+    assert np.array_equal(fourier.rfftfreq_np(9, 0.5),
+                          jfourier.rfftfreq_np(9, 0.5))
+    assert np.array_equal(fourier.fftfreq_np(8), jfourier.fftfreq_np(8))
+    assert np.array_equal(fourier.spectral_diff_matrix_np(16, 1),
+                          jfourier.spectral_diff_matrix_np(16, 1))
+
+
+@pytest.fixture(scope="module")
+def exact_pair():
+    rng = np.random.default_rng(1)
+    nx, ny, T = 16, 120, 900
+    tx = rng.uniform(0, np.pi, T)
+    ty = rng.uniform(0, 2 * np.pi, T)
+    args = (nx, ny, tx, ty, np.pi / nx)
+    f = rng.standard_normal((3, nx, ny))
+    return (jinterp.ExactInterp2D(*args),
+            interp.ExactInterp2D(*args, device="cpu"), f)
+
+
+def test_exact_interp_values(exact_pair):
+    j, t, f = exact_pair
+    _close(t(torch.as_tensor(f)), j(jnp.asarray(f)))
+    _close(t(torch.as_tensor(f[0])), j(jnp.asarray(f[0])))
+    c = torch.fft.fft2(torch.as_tensor(f))
+    _close(t.from_modes(c), j.from_modes(_cx(c)))
+    _close(t.from_modes(c[1]), j.from_modes(_cx(c[1])))
+
+
+def test_exact_interp_grad(exact_pair):
+    j, t, f = exact_pair
+    c = torch.fft.fft2(torch.as_tensor(f))
+    for batch in (c, c[2]):
+        for got, want in zip(t.from_modes_grad(batch),
+                             j.from_modes_grad(_cx(batch))):
+            _close(got, want)
+
+
+@pytest.mark.parametrize("nx,ny,T", [
+    (96, 96, 128),        # interface plan at the entry() size
+    (16, 128, 957),       # radial plan at the entry() size
+    (544, 576, 1200),     # interface plan at nb=1200, M=16
+    (32, 1200, 25254),    # radial plan at nb=1200, M=16
+    (32, 2000, 40000),    # many radial targets: hybrid window NUFFT
+    (512, 512, 40000),    # box-sized target set: window NUFFT
+    (1024, 1024, 10000),  # few targets on a big box: wide window NUFFT
+])
+def test_make_interpolator_routing(nx, ny, T):
+    rng = np.random.default_rng(T)
+    tx = rng.uniform(0, 2 * np.pi, T)
+    ty = rng.uniform(0, 2 * np.pi, T)
+    want = type(jinterp.make_interpolator(nx, ny, tx, ty)).__name__
+    if want == "ExactInterp2D":
+        got = interp.make_interpolator(nx, ny, tx, ty, device="cpu")
+        assert type(got).__name__ == want
+    else:
+        with pytest.raises(NotImplementedError, match=want):
+            interp.make_interpolator(nx, ny, tx, ty, device="cpu")
+
+
+def _system(n=80, seed=2):
+    rng = np.random.default_rng(seed)
+    A = np.eye(n) * 4 + rng.standard_normal((n, n)) / np.sqrt(n)
+    P = np.linalg.inv(np.diag(np.diag(A)) + np.triu(A, 1) * 0.5)
+    b = rng.standard_normal(n)
+    return A, P, b
+
+
+def test_gmres_matches_reference_and_reports_true_residual():
+    A, P, b = _system()
+    At, Pt, bt = map(torch.as_tensor, (A, P, b))
+    res = gmres(lambda v: At @ v, bt, precond=lambda v: Pt @ v, tol=1e-13,
+                maxiter=60, restart=7)
+    true = np.linalg.norm(b - A @ res.x.numpy()) / np.linalg.norm(b)
+    # the residual is recomputed in float64: it agrees to roundoff of
+    # ||A|| ||x|| / ||b|| ~ 1e-16, not to 12 digits of its own size
+    assert res.residual == pytest.approx(true, rel=0, abs=1e-15)
+    assert res.residual <= 1e-13
+    jr = jgmres(lambda v: jnp.asarray(A) @ v, jnp.asarray(b),
+                precond=lambda v: jnp.asarray(P) @ v, tol=1e-13,
+                maxiter=60, restart=7)
+    assert res.iterations == int(jr.iterations)
+    _close(res.x, jr.x, rtol=1e-12)
+    _close(res.x, np.linalg.solve(A, b), rtol=1e-12)
+
+
+def test_gmres_stops_at_maxiter_with_honest_residual():
+    A, P, b = _system(seed=3)
+    At, bt = torch.as_tensor(A), torch.as_tensor(b)
+    res = gmres(lambda v: At @ v, bt, tol=1e-14, maxiter=4, restart=2)
+    assert res.iterations == 4
+    true = np.linalg.norm(b - A @ res.x.numpy()) / np.linalg.norm(b)
+    assert res.residual == pytest.approx(true, rel=0, abs=1e-15)
+    assert true > 1e-6
+    zero = gmres(lambda v: At @ v, torch.zeros_like(bt), tol=1e-14)
+    assert zero.iterations == 0 and zero.residual == 0.0

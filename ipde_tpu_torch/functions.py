@@ -12,6 +12,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from ipde_tpu_torch.config import require_cuda
+
 
 def _f64(a, device):
     return torch.tensor(np.asarray(a, np.float64), device=device)
@@ -112,8 +114,11 @@ class EmbeddedFunction:
                 "radials": [r.cpu().numpy() for r in self.radials]}
 
     @classmethod
-    def load(cls, d: dict, device) -> "EmbeddedFunction":
-        """Accepts the dict of either package's ``save``."""
+    def load(cls, d: dict, device=None) -> "EmbeddedFunction":
+        """Accepts the dict of either package's ``save``; ``device`` None
+        means the CUDA card (``config.require_cuda``)."""
+        if device is None:
+            device = require_cuda()
         return cls(_f64(d["grid"], device),
                    [_f64(r, device) for r in d["radials"]])
 

@@ -14,6 +14,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ipde_tpu_torch.config import require_cuda
 from ipde_tpu_torch.geometry.curve import BoundaryCurve
 from ipde_tpu_torch.geometry.embedded_boundary import (EmbeddedBoundary,
                                                        load_embedded_boundary)
@@ -50,12 +51,15 @@ def grid_inside_mask(bdy: BoundaryCurve, grid: Grid) -> np.ndarray:
 
 
 class EmbeddedBoundaryCollection:
-    def __init__(self, ebdys: Sequence[EmbeddedBoundary], *, device):
+    def __init__(self, ebdys: Sequence[EmbeddedBoundary], device=None):
         """device: where the solve-time tensors of the collection, and of
-        every solver and BIE built from it, live."""
+        every solver and BIE built from it, live.  None means the first
+        CUDA card (``config.require_cuda``), and raises without one: the
+        CPU is used only where the caller names it."""
         self.ebdys = list(ebdys)
         self.N = len(self.ebdys)
-        self.device = torch.device(device)
+        self.device = (require_cuda() if device is None
+                       else torch.device(device))
         self.grid = None
         self.bump_location = None
         self.bumpy = None
@@ -162,6 +166,8 @@ class EmbeddedBoundaryCollection:
         self.kx = np.fft.fftfreq(grid.Nx, grid.xh / (2 * np.pi))[:, None]
         self.ky = np.fft.fftfreq(grid.Ny, grid.yh / (2 * np.pi))[None, :]
         self.lap = -self.kx**2 - self.ky**2
+        self.kx_dev = self._dev(self.kx)
+        self.ky_dev = self._dev(self.ky)
         self.fft_plan = FourierPlan2D(grid.Nx, grid.Ny)
 
         # transformed coordinates (box -> [0, 2pi)^2) for spectral interp
@@ -245,6 +251,21 @@ class EmbeddedBoundaryCollection:
             flat[idx] = plan(refl)
         return flat.reshape(grid_vals.shape)
 
+    def interpolate_radial_to_grid_many(self, radials_list, grid_vals_list):
+        """interpolate_radial_to_grid for F fields at once: each
+        per-boundary plan evaluates all F fields in one call.
+        radials_list: per-field lists of per-boundary (M, N_b) radials;
+        grid_vals_list: F (Nx, Ny) grids; returns F new grid tensors."""
+        flats = [g.reshape(-1).clone() for g in grid_vals_list]
+        for b, (plan, idx) in enumerate(zip(self.radial_to_grid_plans,
+                                            self.ia_flat_list)):
+            refls = torch.stack([torch.cat([fr[b], fr[b].flip(0)], dim=0)
+                                 for fr in radials_list])
+            for flat, vals in zip(flats, plan(refls)):
+                flat[idx] = vals
+        return [flat.reshape(g.shape)
+                for flat, g in zip(flats, grid_vals_list)]
+
     # ------------------------------------------------------------------
     # bump de-meaning (Poisson solvability on the periodic box)
     # ------------------------------------------------------------------
@@ -272,7 +293,8 @@ class EmbeddedBoundaryCollection:
         return {"ebdys": [e.save() for e in self.ebdys]}
 
 
-def load_collection(d: dict, device) -> EmbeddedBoundaryCollection:
-    """Collection from the dict of either package's ``save``."""
+def load_collection(d: dict, device=None) -> EmbeddedBoundaryCollection:
+    """Collection from the dict of either package's ``save``; ``device`` as
+    for ``EmbeddedBoundaryCollection`` (None: the CUDA card)."""
     return EmbeddedBoundaryCollection(
         [load_embedded_boundary(e) for e in d["ebdys"]], device=device)

@@ -1,9 +1,10 @@
 """Fourier transforms and spectral operators on torch.fft (complex128).
 
-The box solve's 2D transform (``FourierPlan2D``) and the annular solvers'
-tangential plan (``tan_rfft`` / ``tan_irfft`` / ``tan_deriv`` along the last
-axis) with the frequency helpers.  Reference semantics: ipde/utilities.py
-:78-124 (Nyquist handling).
+The box solve's 2D transform (``FourierPlan2D``, with batched stacks of
+fields), the 1D last-axis derivative (``FourierPlan1D``) and the annular
+solvers' tangential plan (``tan_rfft`` / ``tan_irfft`` / ``tan_deriv`` along
+the last axis) with the frequency helpers.  Reference semantics:
+ipde/utilities.py:78-124 (Nyquist handling).
 """
 
 from __future__ import annotations
@@ -33,9 +34,24 @@ def spectral_diff_matrix_np(n: int, order: int = 1,
                        axis=0).real
 
 
+class FourierPlan1D:
+    """Spectral derivative along the LAST axis of a real tensor (period
+    ``length``) with the Nyquist mode zeroed: the real differentiation
+    circulant of ipde_tpu.ops.fourier.FourierPlan1D, on torch.fft."""
+
+    def __init__(self, n: int, length: float = 2.0 * np.pi, *, device):
+        self.n = n
+        self.tan = TanPlan(n, device, length)
+
+    def tderiv(self, x: torch.Tensor) -> torch.Tensor:
+        """d/dt along the last axis."""
+        return tan_deriv(x, self.tan)
+
+
 class FourierPlan2D:
     """2D DFT of real (nx, ny) fields: complex128 modes in fftfreq order,
-    unnormalized (numpy's convention)."""
+    unnormalized (numpy's convention).  A leading batch dimension
+    transforms a stack of fields in one call."""
 
     def __init__(self, nx: int, ny: int):
         self.nx, self.ny = nx, ny
@@ -47,6 +63,16 @@ class FourierPlan2D:
     def ifft2_real(self, c: torch.Tensor) -> torch.Tensor:
         """Real part of the inverse 2D DFT of c."""
         return torch.fft.ifft2(c).real
+
+    def fft2_stack(self, xs) -> torch.Tensor:
+        """Modes (B, nx, ny) of B same-shape real fields, one batched
+        transform."""
+        return torch.fft.fft2(torch.stack(list(xs)))
+
+    def ifft2_real_stack(self, cs) -> torch.Tensor:
+        """Real parts (B, nx, ny) of the inverse transforms of B spectra,
+        one batched transform."""
+        return torch.fft.ifft2(torch.stack(list(cs))).real
 
 
 class TanPlan:

@@ -7,11 +7,13 @@ device apply needs.
 
 ``make_interpolator`` keeps the routing of ``ipde_tpu.ops.interp``, so both
 packages give a problem the same interpolator classes.  This port carries
-``ExactInterp2D`` (exact trigonometric sums as two complex matmuls), which is
-what the routing picks for the interface plan and the radial->grid plans of
-the Poisson solve at nb=1200, M=16 and at the test sizes.  The window-NUFFT
-classes ``PeriodicInterpolator2D`` and ``HybridInterp2D`` are not ported
-yet and raise ``NotImplementedError`` (ROADMAP.md, Queue 1).
+``ExactInterp2D`` (exact trigonometric sums as two complex matmuls), which the
+routing picks for interface plans and for radial->grid plans with up to
+32,768 targets, and ``HybridInterp2D`` (exact along the first axis, ES-window
+NUFFT along the last), which it picks for radial->grid plans with more
+targets, e.g. the bench geometry (star(1200, a=0.2, f=5), M=16, a 1024x1088
+box).  The full window NUFFT ``PeriodicInterpolator2D`` is not ported yet and
+raises ``NotImplementedError`` (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -59,6 +61,12 @@ def _es_kernel_ft_table(w: int, beta: float, half_width: float, nk: int):
     return (np.cos(np.outer(k, y)) * vals).sum(axis=1)
 
 
+def _es_beta(w: int, sigma: float) -> float:
+    """ES shape parameter: finufft's rule beta = 2.30 w at sigma = 2,
+    scaled like pi w (1 - 1/(2 sigma)) for other upsampling factors."""
+    return 2.30 * w * (1.0 - 0.5 / sigma) / 0.75
+
+
 # ---------------------------------------------------------------------------
 # interpolators
 # ---------------------------------------------------------------------------
@@ -74,14 +82,80 @@ class PeriodicInterpolator2D:
 
 
 class HybridInterp2D:
-    """Exact-in-x, window-NUFFT-in-y interpolation
-    (ipde_tpu.ops.interp.HybridInterp2D).  Not ported yet: ROADMAP.md
-    Queue 1 item 5."""
+    """Exact trigonometric evaluation along the FIRST axis, ES-window NUFFT
+    along the LAST axis (ipde_tpu.ops.interp.HybridInterp2D).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "HybridInterp2D is not ported to ipde_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 5)")
+    Built for the radial (Chebyshev-reflection) -> grid transfer, where the
+    first axis holds only 2M Fourier modes while the targets number in the
+    tens of thousands: the modes are deconvolved and zero-padded along y,
+    one complex128 inverse FFT along dim 0 gives the (nfy, B*nx) fine-in-y
+    array, and each target sums w of its rows against its (nx,) phases.
+    The window weights, row indices, y-deconvolution and x-phases are built
+    on the host once per plan, as ipde_tpu builds them.
+    """
+
+    def __init__(self, nx: int, ny: int, tx, ty, sigma: float = 2,
+                 w: int = 16, x_offset: float = 0.0, y_offset: float = 0.0,
+                 *, device):
+        txa = np.asarray(tx, np.float64).ravel() - x_offset
+        tya = np.mod(np.asarray(ty, np.float64).ravel() - y_offset,
+                     2 * np.pi)
+        self.nx, self.ny = nx, ny
+        nfy = int(np.ceil(sigma * ny))
+        hy = 2 * np.pi / nfy
+        beta = _es_beta(w, sigma)
+        half_w = w / 2.0
+        jy = np.floor(tya / hy).astype(np.int64)
+        oy = jy - (w // 2 - 1)
+        py = oy[:, None] + np.arange(w)[None, :]
+        zy = (tya[:, None] / hy - py) / half_w
+        dev = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+        self.wy = dev(_es_kernel(zy, beta))                       # (T, w)
+        self.row_idx = dev(np.ascontiguousarray(np.mod(py, nfy).T))  # (w, T)
+        ky = np.abs(np.fft.fftfreq(ny, 1.0 / ny)).astype(int)
+        phy = _es_kernel_ft_table(w, beta, half_w * hy, int(ky.max()) + 1)
+        self.deconv_y = dev(hy / phy[ky])                         # (ny,)
+        kxn = np.fft.fftfreq(nx, 1.0 / nx)
+        ang = np.outer(txa, kxn)
+        E = np.empty(ang.shape, np.complex128)                    # (T, nx)
+        E.real = np.cos(ang)
+        E.imag = np.sin(ang)
+        self.E = dev(E)
+        self.nfy = nfy
+        self.T = txa.size
+        self.w = w
+
+    def _many_from_modes(self, c):
+        """(B, nx, ny) complex modes -> (B, T) real values.  The fields ride
+        the column axis of the fine y-transform and of each row gather."""
+        B = c.shape[0]
+        d = self.deconv_y * (self.nfy / (self.nx * self.ny))
+        D = (c * d).permute(2, 0, 1).reshape(self.ny, B * self.nx)
+        hy = self.ny // 2
+        ry = self.ny - hy
+        P = D.new_zeros((self.nfy, B * self.nx))
+        P[:hy] = D[:hy]
+        P[self.nfy - ry:] = D[hy:]
+        F = torch.fft.ifft(P, dim=0)                      # (nfy, B*nx)
+        acc = torch.zeros((self.T, B), dtype=torch.float64, device=c.device)
+        for q in range(self.w):
+            rows = F.index_select(0, self.row_idx[q]).reshape(self.T, B,
+                                                               self.nx)
+            val = torch.einsum("tbx,tx->tb", rows, self.E).real
+            acc += self.wy[:, q, None] * val
+        return acc.T
+
+    def from_modes(self, c):
+        """c: (nx, ny) or (B, nx, ny) unnormalized fft2 modes."""
+        if c.dim() == 3:
+            return self._many_from_modes(c)
+        return self._many_from_modes(c[None])[0]
+
+    def __call__(self, f):
+        """f: real (nx, ny) or (B, nx, ny) grid values."""
+        if f.dim() == 3:
+            return self._many_from_modes(torch.fft.fft2(f))
+        return self._many_from_modes(torch.fft.fft2(f)[None])[0]
 
 
 class ExactInterp2D:
@@ -175,6 +249,7 @@ def make_interpolator(nx: int, ny: int, tx, ty, x_offset: float = 0.0,
         kw = {"device": device}
     elif nx <= 64:
         cls = HybridInterp2D
+        kw = {"device": device}
     elif T * 8 <= nx * ny:
         cls = PeriodicInterpolator2D
         kw = {"sigma": 1.25, "w": 24}

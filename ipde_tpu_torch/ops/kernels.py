@@ -31,7 +31,7 @@ _MIN_R2 = 1e-30
 # (T-chunk x S) f64 elements per step of the plain version
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
-_lib = None
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -44,27 +44,33 @@ def _nvcc() -> str:
     return nvcc
 
 
-def load_library():
-    """Build (first use only) and load the CUDA kernel library."""
-    global _lib
-    if _lib is None:
-        path = build_shared(_CSRC / "laplace_slp.cu", [_nvcc()] + _NVCC_FLAGS,
-                            "laplace_slp")
-        lib = ctypes.CDLL(str(path))
-        fn = lib.laplace_slp_apply_f64
+def build_library(stem: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """Build (first use only) ``csrc/<stem>.cu`` into a shared library with
+    a plain C interface, load it, and return its function ``symbol`` typed
+    with ``argtypes``, returning an int (the launch's cudaError_t)."""
+    fn = _libs.get(stem)
+    if fn is None:
+        path = build_shared(_CSRC / f"{stem}.cu", [_nvcc()] + _NVCC_FLAGS,
+                            stem)
+        fn = getattr(ctypes.CDLL(str(path)), symbol)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_void_p]
-        _lib = lib
-    return _lib
+        fn.argtypes = argtypes
+        fn = _libs.setdefault(stem, fn)
+    return fn
 
 
-def _check(sx, sy, weighted_charge, tx, ty):
-    args = {"sx": sx, "sy": sy, "weighted_charge": weighted_charge,
-            "tx": tx, "ty": ty}
-    dev = sx.device
+def load_library() -> ctypes._CFuncPtr:
+    """The Laplace kernel's launcher, built at first use."""
+    P, I64 = ctypes.c_void_p, ctypes.c_int64
+    return build_library("laplace_slp", "laplace_slp_apply_f64",
+                         [P, P, P, I64, P, P, P, I64, ctypes.c_int, P])
+
+
+def check_f64_1d(sources: dict, targets: dict):
+    """Raise unless every array is a contiguous 1-D float64 tensor on one
+    device, the sources of one length and the targets of another."""
+    args = {**sources, **targets}
+    dev = next(iter(args.values())).device
     for name, a in args.items():
         if not isinstance(a, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor")
@@ -75,12 +81,10 @@ def _check(sx, sy, weighted_charge, tx, ty):
         if not a.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if a.device != dev:
-            raise ValueError(f"{name} is on {a.device}, sx on {dev}")
-    S, T = sx.shape[0], tx.shape[0]
-    if sy.shape[0] != S or weighted_charge.shape[0] != S:
-        raise ValueError("sx, sy and weighted_charge must have one length")
-    if ty.shape[0] != T:
-        raise ValueError("tx and ty must have one length")
+            raise ValueError(f"{name} is on {a.device}, the others on {dev}")
+    for group in (sources, targets):
+        if len({a.shape[0] for a in group.values()}) > 1:
+            raise ValueError(f"{', '.join(group)} must have one length")
 
 
 def laplace_slp_apply_plain(sx, sy, weighted_charge, tx, ty):
@@ -106,7 +110,8 @@ def laplace_slp_apply(sx, sy, weighted_charge, tx, ty):
     CPU tensors take ``laplace_slp_apply_plain``; CUDA tensors launch the
     FP64 kernel of ``csrc/laplace_slp.cu`` on the current stream and count
     the launch in ``laplace_slp_apply.launches``."""
-    _check(sx, sy, weighted_charge, tx, ty)
+    check_f64_1d({"sx": sx, "sy": sy, "weighted_charge": weighted_charge},
+                 {"tx": tx, "ty": ty})
     dev = tx.device
     if dev.type == "cpu":
         return laplace_slp_apply_plain(sx, sy, weighted_charge, tx, ty)
@@ -118,9 +123,8 @@ def laplace_slp_apply(sx, sy, weighted_charge, tx, ty):
         return out
     if S == 0:
         return out.zero_()
-    lib = load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.laplace_slp_apply_f64(
+    err = load_library()(
         sx.data_ptr(), sy.data_ptr(), weighted_charge.data_ptr(), S,
         tx.data_ptr(), ty.data_ptr(), out.data_ptr(), T, dev.index, stream)
     if err != 0:

@@ -100,12 +100,15 @@ class StratifiedRadialApply:
         inv[row_order] = np.arange(M)
         self._inv_rows = dev(inv)
 
-    def apply(self, fn: Callable):
-        """fn(sx, sy, wscale, stride, tx, ty) -> (T,) tensor; returns the
-        (M, n) result in radial-row order.  ``wscale`` is the strided
-        quadrature weights (already scaled by the stride); the caller
-        multiplies its strided density by it."""
+    def apply(self, fn: Callable, n_out: int = 1):
+        """fn(sx, sy, wscale, stride, tx, ty) -> (T,) tensor, or a tuple of
+        ``n_out`` (T,) tensors; returns the (M, n) result(s) in radial-row
+        order.  ``wscale`` is the strided quadrature weights (already scaled
+        by the stride); the caller multiplies its strided density by it."""
         n = self.shape[1]
-        outs = [fn(gsx, gsy, gw, f, tx, ty).reshape(-1, n)
+        outs = [fn(gsx, gsy, gw, f, tx, ty)
                 for f, tx, ty, gsx, gsy, gw in self.groups]
-        return torch.cat(outs)[self._inv_rows]
+        if n_out == 1:
+            return torch.cat([o.reshape(-1, n) for o in outs])[self._inv_rows]
+        return tuple(torch.cat([o[j].reshape(-1, n) for o in outs])
+                     [self._inv_rows] for j in range(n_out))

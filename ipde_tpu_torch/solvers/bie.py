@@ -1,4 +1,4 @@
-"""Boundary integral equation for the physical Dirichlet boundary condition.
+"""Boundary integral equations for the physical Dirichlet boundary condition.
 
 After the inhomogeneous solve, the PDE residual is a homogeneous solution
 determined by a dense BIE on the true boundaries (reference: done in the
@@ -7,7 +7,8 @@ assembled and inverted on the host at setup; the solve-time path is matmuls
 plus dense layer evaluations in the CUDA kernel.
 
 Dirichlet representation: u_H = sum_j DLP_j[tau_j], collocated on every
-boundary with the one-sided limit taken from the physical side.
+boundary with the one-sided limit taken from the physical side; for Stokes
+the DLP is the stresslet, with the normal-flux rank completion.
 """
 
 from __future__ import annotations
@@ -17,8 +18,10 @@ import torch
 
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.ops import singular as sq
+from ipde_tpu_torch.ops import stokes_kernels as sk
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 from ipde_tpu_torch.solvers.scalar import ScalarSolver
+from ipde_tpu_torch.solvers.vector import StokesSolver, stokes_qfs
 
 
 def _invert_system(blocks, offs) -> np.ndarray:
@@ -112,3 +115,59 @@ class DirichletBIE:
                         sx, sy, sig[::f] * ws, tx, ty))
         return EmbeddedFunction(new_grid, new_radials)
 
+
+class StokesDirichletBIE:
+    """Dense velocity-Dirichlet BIE for a one-boundary StokesSolver; its
+    tensors live on the collection's device.
+
+    Representation (reference: examples/multi_stokes_for_paper.py:117-190):
+    the (interior) boundary carries DLP[tau] with the normal-flux rank
+    completion; the one-sided limit is taken from the physical side.  The
+    block is built and inverted on the host; the QFS forms are DLP-only.
+    """
+
+    def __init__(self, solver: StokesSolver):
+        self.solver = solver
+        ebdyc = solver.ebdyc
+        self.ebdyc = ebdyc
+        dev = ebdyc.device
+        (e,) = ebdyc.ebdys    # StokesSolver takes one interior boundary
+        b = e.bdy
+        A = (sk.stokes_dlp_self(b) - 0.5 * np.eye(2 * b.N)
+             + sk.stokes_pressure_fix(b, b.normal_x, b.normal_y))
+        self.Ainv = torch.as_tensor(_invert_system([[A]], [0, 2 * b.N]),
+                                    device=dev)
+        self.src = e.qfs_source_for_side("bdy", interior_eval=True)
+        self.qfs = stokes_qfs(b, self.src, True, slp=False, dlp=True,
+                              build_u2s=False, device=dev)
+        self.radial_plan = StratifiedRadialApply(
+            self.src, e.radial_x, e.radial_y, k_density=b.N // 2, device=dev)
+        # all physical grid points (pna + in-annulus)
+        phys = ebdyc.phys
+        self.phys_flat = torch.as_tensor(np.flatnonzero(phys), device=dev)
+        self.phys_x = torch.as_tensor(ebdyc.grid.xg[phys], device=dev)
+        self.phys_y = torch.as_tensor(ebdyc.grid.yg[phys], device=dev)
+
+    def apply_bc(self, u, v, p, bc_u, bc_v):
+        """Correct (u, v, p) to satisfy the velocity boundary conditions."""
+        solver = self.solver
+        bu = solver.get_boundary_values(u)
+        bv = solver.get_boundary_values(v)
+        rhs = torch.cat([bc_u.values[0] - bu.values[0],
+                         bc_v.values[0] - bv.values[0]])
+        sig = self.qfs([self.Ainv @ rhs])
+        d = self.src.dev(self.ebdyc.device)
+        sN = self.src.N
+        # evaluate onto all physical grid points and the radial grid
+        gu, gv, gp = sk.stokes_slp_apply(
+            d["x"], d["y"], sig[:sN] * d["weights"], sig[sN:] * d["weights"],
+            self.phys_x, self.phys_y)
+        ru, rv, rp = self.radial_plan.apply(
+            lambda sx, sy, ws, f, tx, ty: sk.stokes_slp_apply(
+                sx, sy, sig[:sN][::f] * ws, sig[sN:][::f] * ws, tx, ty),
+            n_out=3)
+        return tuple(
+            EmbeddedFunction(
+                f.grid.reshape(-1).index_add(0, self.phys_flat, g)
+                .reshape(f.grid.shape), [f.radials[0] + r])
+            for f, g, r in ((u, gu, ru), (v, gv, rv), (p, gp, rp)))

@@ -145,8 +145,16 @@ def test_collection_matches(pair):
 
 
 def test_collection_device_is_explicit():
-    with pytest.raises(TypeError):
-        EmbeddedBoundaryCollection([])
+    # no device given: the CUDA card, and without one a RuntimeError (no
+    # silent CPU fallback); the CPU only where the caller names it
+    for make in (lambda: EmbeddedBoundaryCollection([]),
+                 lambda: load_collection({"ebdys": []})):
+        if torch.cuda.is_available():
+            assert make().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+    assert EmbeddedBoundaryCollection([], device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError):
         bdy = star(NB, a=0.1, f=3)
         EmbeddedBoundaryCollection(

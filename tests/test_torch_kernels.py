@@ -95,9 +95,10 @@ def test_wrapper_checks_and_cpu_route():
 
 
 def test_module_import_builds_nothing():
-    # importing the kernels module neither needs nvcc nor builds
+    # importing the kernel modules neither needs nvcc nor builds
     code = ("import ipde_tpu_torch.ops.kernels as k, sys; "
-            "sys.exit(0 if k._lib is None else 1)")
+            "import ipde_tpu_torch.ops.stokes_kernels; "
+            "sys.exit(0 if not k._libs else 1)")
     assert subprocess.run([sys.executable, "-c", code],
                           cwd=Path(__file__).resolve().parents[1]).returncode == 0
 

@@ -207,6 +207,9 @@ def test_port_imports_no_jax():
         "for m in pkgutil.walk_packages(ipde_tpu_torch.__path__,\n"
         "                               'ipde_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import chip_smoke, torch_profile_solve\n"
+        "assert 'ipde_tpu_torch.solvers.vector' in sys.modules\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'ipde_tpu')]\n"
         "print(len(sys.modules), bad)\n"

@@ -6,11 +6,14 @@ builds and runs on an NVIDIA GPU.
 Phases (any failure exits non-zero before the last line is printed; each
 phase prints its seconds):
   1. require a CUDA device; print the card's name and power limit; build the
-     CUDA kernels from ``ipde_tpu_torch/csrc`` (one nvcc per source, started
-     together) and print the build seconds.
+     four CUDA kernels from ``ipde_tpu_torch/csrc`` (one nvcc per source,
+     started together) and print the build seconds.
   2. Poisson: compare the Laplace single-layer kernel with its plain torch
      version on near-coincident test clouds and at the shapes of the Poisson
-     solve (max relative difference <= 1e-12); run the interior Poisson
+     solve (max relative difference <= 1e-12), and the Laplace gradient
+     kernel on the clouds and at the merged shape with the solve's own
+     merged sigma_g as charges (relative to max(1, |gx| + |gy|) per row,
+     <= 1e-12; no solver calls the gradient); run the interior Poisson
      Dirichlet solve of the reference paper's refinement row,
      star(1200, a=0.2, f=3), M=16, qfs_tolerance=1e-14 (a 544x576 box grid,
      201,824 dof), through PoissonSolver.solve_with_stats +
@@ -28,7 +31,22 @@ phase prints its seconds):
      plateau), a pressure error < 8e-8 after its mean over the physical
      points is removed, an annular GMRES residual <= tol, and stokes_slp
      launches from that run.
-  4. print the kernels' JSON line, the card's name and power limit, then
+  4. modified Helmholtz: compare the Yukawa kernel with its plain torch
+     version on the clouds for k = 1 and k = 20 and at the merged, BIE-grid
+     and one radial-group shape of each problem (<= 1e-12 relative to
+     max|plain|); run two interior Yukawa solves through
+     ModifiedHelmholtzSolver.solve_with_stats and a BIE's apply_bc, with
+     the manufactured solution of tests/test_interior_mh.py:
+       - mh_dirichlet_k2: k = 2, star(800, a=0.2, f=5), M=20,
+         qfs_tolerance=1e-14 (tests/test_interior_mh.py), DirichletBIE;
+         error < 2.5e-10, that test's assert;
+       - mh_neumann_k2e4: k = 100 (k^2 = 1e4), star(600, a=0.2, f=5), M=24,
+         qfs_tolerance=1e-14, the reference paper's high-k Neumann row
+         (examples/mh_neumann_refinement.py), NeumannBIE; error < 4.10e-9,
+         the reference's converged value;
+     each also requires an annular GMRES residual <= tol and mh_slp
+     launches from its run.
+  5. print the kernels' JSON line, the card's name and power limit, then
      the device JSON line last.
 
 Each main path runs with every kernel's launch count set to 0 just before
@@ -37,7 +55,11 @@ counted.  ``bound_ms`` is the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
 FP64 operations over 34 TFLOP/s, the H100 SXM's FP64 peak outside the
 tensor cores (NVIDIA H100 data sheet); operations are counted per
-target-source pair with an FMA as two and a log or a reciprocal as one.
+target-source pair from each kernel's code with an FMA as two and a log,
+exp, sqrt or reciprocal as one.  The Yukawa kernel's work depends on the
+data: each pair takes one branch of its K0 by z = k r, so its operations are
+counted per branch and weighted by the pairs of the timed inputs that fall
+in each (counted on the card with the plain code's z).
 """
 
 import json
@@ -56,13 +78,26 @@ TOL_SOLVE_ERR = 2.5e-11          # Poisson, nb=1200 (reference ledger)
 TOL_STOKES_VEL = 3.3441e-10      # reference Stokes plateau
 TOL_STOKES_P = 8e-8              # tests/test_interior_stokes.py
 GMRES_TOL = 1e-12
+# (name, k, nb, M, BIE, error limit): the modified Helmholtz problems
+MH_CASES = (
+    ("mh_dirichlet_k2", 2.0, 800, 20, "dirichlet", 2.5e-10),
+    ("mh_neumann_k2e4", 100.0, 600, 24, "neumann", 4.10e-9),
+)
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 # FP64 operations per target-source pair (FMA = 2, log = reciprocal = 1):
 # laplace: 2 sub, r^2 (mul + FMA), max, log, FMA accumulate
 # stokes: 2 sub, r^2 (mul + FMA), max, reciprocal, log, mul, the force
 #         projection (mul + FMA + mul), two FMA pairs into u and v, add to p
-OPS_PER_PAIR = {"laplace_slp": 9, "stokes_slp": 22}
+# laplace_grad: 2 sub, r^2 (mul + FMA), max, reciprocal, mul, two FMAs
+OPS_PER_PAIR = {"laplace_slp": 9, "stokes_slp": 22, "laplace_grad": 12}
+# mh_slp per branch of K0 (csrc/mh_slp.cu): every pair pays 2 sub, r^2 (mul
+# + FMA), max, sqrt, mul by k, the compare z < 2 and the FMA accumulate (11);
+# series (z < 2): q (mul), 13 terms of (2 mul, add, FMA), log, 2 FMA (+71);
+# Chebyshev (2 <= z <= 36): the compare z > 36, reciprocal, FMA, add, 25
+# Clenshaw steps of (sub, FMA), the last (sub, FMA), exp, sqrt, 2 mul
+# (+87); dead (z > 36): the compare (+1)
+MH_OPS_PER_PAIR = {"series": 82, "cheb": 98, "dead": 12}
 
 
 def sol(x, y):
@@ -85,6 +120,25 @@ def vsol(x, y):
 
 def psol(x, y):
     return np.cos(x) * np.sin(y)
+
+
+# the manufactured solution of tests/test_interior_mh.py and test_neumann.py
+def mh_sol(x, y):
+    return np.exp(np.sin(x)) * np.sin(2 * y) + 0.3 * np.cos(3 * x) * np.cos(y)
+
+
+def mh_lap_sol(x, y):
+    u1 = np.exp(np.sin(x)) * np.sin(2 * y)
+    u1xx = np.exp(np.sin(x)) * (np.cos(x) ** 2 - np.sin(x)) * np.sin(2 * y)
+    u2 = 0.3 * np.cos(3 * x) * np.cos(y)
+    return u1xx - 4 * u1 - 10 * u2
+
+
+def mh_grad_sol(x, y):
+    ux = (np.cos(x) * np.exp(np.sin(x)) * np.sin(2 * y)
+          - 0.9 * np.sin(3 * x) * np.cos(y))
+    uy = 2 * np.exp(np.sin(x)) * np.cos(2 * y) - 0.3 * np.cos(3 * x) * np.sin(y)
+    return ux, uy
 
 
 def fuf(x, y):
@@ -140,6 +194,15 @@ def laplace_err(got, want):
     return a, a / float(want.abs().max())
 
 
+def grad_err(got, want):
+    """(max abs difference, max difference relative to max(1, |gx| + |gy|)
+    per row, as tests/test_pallas_ds.py measures the gradient)."""
+    scale = (want[0].abs() + want[1].abs()).clamp_min(1.0)
+    a = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    return a, max(float(((g - w).abs() / scale).max())
+                  for g, w in zip(got, want))
+
+
 def stokes_err(got, want):
     """(max abs difference, max relative difference): u and v relative to
     max|u| and max|v|, p relative to max(1, |p|) per row."""
@@ -151,20 +214,22 @@ def stokes_err(got, want):
     return a, rel
 
 
-def bound_ms(name, S, T):
+def bound_ms(name, S, T, ops=None):
     """The least time the card could take for one apply: see the module
-    docstring."""
-    n_in, n_out = {"laplace_slp": (3, 1), "stokes_slp": (4, 3)}[name]
+    docstring.  ``ops`` defaults to OPS_PER_PAIR[name] per pair."""
+    n_in, n_out = {"laplace_slp": (3, 1), "stokes_slp": (4, 3),
+                   "laplace_grad": (3, 2), "mh_slp": (3, 1)}[name]
     nbytes = 8 * (n_in * S + 2 * T + n_out * T)
-    ops = OPS_PER_PAIR[name] * S * T
+    if ops is None:
+        ops = OPS_PER_PAIR[name] * S * T
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP64_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes > t_ops else \
         "operations"
 
 
-def compare(kernel, plain, err, label, args, timed=False):
-    """Kernel vs plain version on one input set; returns (max abs diff,
-    kernel ms, plain ms)."""
+def compare(kernel, plain, err, label, args, timed=False, plain_reps=5):
+    """Kernel vs plain version on one input set (sx, sy, ..., tx, ty[, k]);
+    returns (max abs diff, kernel ms, plain ms)."""
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
@@ -175,8 +240,9 @@ def compare(kernel, plain, err, label, args, timed=False):
     ms = plain_ms = float("nan")
     if timed:
         ms = cuda_ms(lambda: kernel(*args))
-        plain_ms = cuda_ms(lambda: plain(*args))
-    print(f"# {kernel.__name__} {label}: T={args[-1].shape[0]} "
+        plain_ms = cuda_ms(lambda: plain(*args), reps=plain_reps)
+    T = next(a for a in reversed(args) if isinstance(a, torch.Tensor)).shape[0]
+    print(f"# {kernel.__name__} {label}: T={T} "
           f"S={args[0].shape[0]} max_abs={abs_err:.3e} max_rel={rel_err:.3e} "
           f"(tol {TOL_KERNEL_REL:.0e})"
           + (f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms" if timed else ""),
@@ -233,6 +299,61 @@ def build_stokes_problem(dev=None, nb=1200, M=16, grid_target=1024):
     return ebdyc, grid, (fu, fv), bcs, solver, bie
 
 
+def build_mh_problem(dev, k, nb, M, bie_kind):
+    """An interior modified Helmholtz problem of MH_CASES, with the
+    manufactured solution mh_sol; ``bie_kind`` "dirichlet" or "neumann"."""
+    from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
+    from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
+    from ipde_tpu_torch.geometry.curve import star
+    from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
+    from ipde_tpu_torch.solvers.bie import DirichletBIE, NeumannBIE
+    from ipde_tpu_torch.solvers.scalar import ModifiedHelmholtzSolver
+
+    bdy = star(nb, a=0.2, f=5)
+    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
+    ebdy = EmbeddedBoundary(bdy, True, M, bh, qfs_tolerance=1e-14)
+    ebdyc = EmbeddedBoundaryCollection([ebdy], device=dev)
+    grid = ebdyc.generate_grid(bh)
+    f = EmbeddedFunction.from_function(
+        ebdyc, lambda x, y: k * k * mh_sol(x, y) - mh_lap_sol(x, y))
+    solver = ModifiedHelmholtzSolver(ebdyc, k=k)
+    if bie_kind == "neumann":
+        ux, uy = mh_grad_sol(bdy.x, bdy.y)
+        bc = BoundaryFunction([torch.as_tensor(
+            ux * bdy.normal_x + uy * bdy.normal_y, device=ebdyc.device)])
+        bie = NeumannBIE(solver)
+    else:
+        bc = BoundaryFunction.from_function(ebdyc, mh_sol)
+        bie = DirichletBIE(solver)
+    return ebdyc, grid, f, bc, solver, bie
+
+
+def mh_branch_counts(sx, sy, tx, ty, k):
+    """Pairs of these inputs that take each branch of K0 (series z < 2,
+    Chebyshev 2 <= z <= 36, dead z > 36), with the plain code's z, counted
+    on the card in chunks."""
+    from ipde_tpu_torch.ops import kernels as K
+    S, T = sx.shape[0], tx.shape[0]
+    n_series = n_dead = 0
+    chunk = max(1, (1 << 24) // max(S, 1))
+    for i0 in range(0, T, chunk):
+        dx = tx[i0:i0 + chunk, None] - sx[None, :]
+        dy = ty[i0:i0 + chunk, None] - sy[None, :]
+        z = torch.sqrt((dx * dx + dy * dy).clamp_min_(K._MIN_R2)) * k
+        n_series += int((z < K.K0_CHEB_LO).sum())
+        n_dead += int((z > K.K0_CHEB_HI).sum())
+    return {"series": n_series, "cheb": S * T - n_series - n_dead,
+            "dead": n_dead}
+
+
+def mh_bound_ms(sx, sy, tx, ty, k):
+    """bound_ms of one Yukawa apply, its operations weighted by branch;
+    also returns the branch counts."""
+    counts = mh_branch_counts(sx, sy, tx, ty, k)
+    ops = sum(MH_OPS_PER_PAIR[b] * n for b, n in counts.items())
+    return bound_ms("mh_slp", sx.shape[0], tx.shape[0], ops) + (counts,)
+
+
 def max_err(ebdyc, ef, f, shift=0.0):
     """max |ef - f - shift| over the physical grid points and radial
     nodes."""
@@ -263,15 +384,39 @@ def timed_runs(run, counters):
     return out, launches, first, warm
 
 
+def merged_sigma_g(solver, f):
+    """The merged sigma_g that one solve hands its merged layer-potential
+    apply (a solve outside the counted runs)."""
+    seen = []
+
+    def grab(sigma_g, tx, ty):
+        seen.append(sigma_g)
+        return type(solver)._apply_merged(solver, sigma_g, tx, ty)
+
+    solver._apply_merged = grab
+    try:
+        solver.solve_with_stats(f, tol=GMRES_TOL, maxiter=100, restart=30)
+    finally:
+        del solver._apply_merged
+    return seen[0]
+
+
 def poisson_phase(dev, K, counters):
     t_phase = time.perf_counter()
     as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     lap = (K.laplace_slp_apply, K.laplace_slp_apply_plain, laplace_err)
+    grad = (K.laplace_slp_grad_apply, K.laplace_slp_grad_apply_plain,
+            grad_err)
     errs = []
+    grad_errs = []
     for seed in (0, 4):
         sx, sy, q, _, tx, ty = map(as_dev, cloud(seed=seed))
         errs.append(compare(*lap, f"cloud seed {seed}",
                             (sx, sy, q, tx, ty))[0])
+    for seed in (1, 4):
+        sx, sy, q, _, tx, ty = map(as_dev, cloud(seed=seed))
+        grad_errs.append(compare(*grad, f"cloud seed {seed}",
+                                 (sx, sy, q, tx, ty))[0])
 
     t0 = time.perf_counter()
     ebdyc, grid, f, bc, solver, bie = build_problem(dev)
@@ -321,15 +466,31 @@ def poisson_phase(dev, K, counters):
         raise RuntimeError(f"annular GMRES residual {resid:.3e} > {GMRES_TOL}")
     if launches["laplace_slp"] <= 0:
         raise RuntimeError("the Poisson solve launched no laplace_slp kernel")
+    # the gradient at the merged shape, charged with the solve's own sigma_g
+    gq = merged_sigma_g(solver, f) * solver.grid_src_w
+    ge, gms, gplain_ms = compare(
+        *grad, "merged sigma_g -> pna+interface",
+        (solver.grid_src_x, solver.grid_src_y, gq, solver._dense_tx,
+         solver._dense_ty), timed=True)
+    grad_errs.append(ge)
     print(f"# poisson phase {time.perf_counter() - t_phase:.2f} s",
           flush=True)
-    bnd, by = bound_ms("laplace_slp", S, merged[3].shape[0])
-    return {"name": "laplace_slp", "route": "cuda",
-            "source": "ipde_tpu_torch/csrc/laplace_slp.cu",
-            "replaces": "ipde_tpu/ops/pallas_ds.py:469",
-            "launches": launches["laplace_slp"], "max_abs_err": max(errs),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
-            "library_ms": None}
+    T = merged[3].shape[0]
+    bnd, by = bound_ms("laplace_slp", S, T)
+    gbnd, gby = bound_ms("laplace_grad", S, T)
+    return [{"name": "laplace_slp", "route": "cuda",
+             "source": "ipde_tpu_torch/csrc/laplace_slp.cu",
+             "replaces": "ipde_tpu/ops/pallas_ds.py:469",
+             "launches": launches["laplace_slp"], "max_abs_err": max(errs),
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+             "bound_by": by, "library_ms": None},
+            {"name": "laplace_grad", "route": "cuda",
+             "source": "ipde_tpu_torch/csrc/laplace_grad.cu",
+             "replaces": "ipde_tpu/ops/pallas_ds.py:479",
+             "launches": launches["laplace_grad"],
+             "max_abs_err": max(grad_errs), "ms": gms,
+             "plain_ms": gplain_ms, "bound_ms": gbnd, "bound_by": gby,
+             "library_ms": None}]
 
 
 def gmres_floor(solver, fu, fv, tols=(1e-13, 3e-14)):
@@ -443,6 +604,91 @@ def stokes_phase(dev, SK, counters):
             "library_ms": None}
 
 
+def mh_phase(dev, K, counters):
+    t_phase = time.perf_counter()
+    as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    mh = (K.mh_slp_apply, K.mh_slp_apply_plain, laplace_err)
+    errs = []
+    for k in (1.0, 20.0):
+        sx, sy, q, _, tx, ty = map(as_dev, cloud(seed=5))
+        errs.append(compare(*mh, f"cloud seed 5, k={k:g}",
+                            (sx, sy, q, tx, ty, k))[0])
+    entry = None
+    total_launches = 0
+    for name, k, nb, M, bie_kind, limit in MH_CASES:
+        t0 = time.perf_counter()
+        ebdyc, grid, f, bc, solver, bie = build_mh_problem(dev, k, nb, M,
+                                                           bie_kind)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        e0 = ebdyc.ebdys[0]
+        dof = int(ebdyc.phys.sum() + np.prod(e0.radial_shape))
+        n_pna = ebdyc.pna_x.size
+        T_merged = solver._dense_tx.shape[0]
+        S = solver.grid_src_x.shape[0]
+        print(f"# {name} setup {setup_s:.2f} s: k={k:g}, grid {grid.shape}, "
+              f"{dof} dof, {n_pna} pna + {T_merged - n_pna} interface = "
+              f"{T_merged} merged targets, {S} merged QFS sources, "
+              f"{bie.phys_x.shape[0]} physical points, QFS shift alpha "
+              f"{solver._qfs_alpha(e0):.4f}", flush=True)
+
+        rng = np.random.default_rng(7)
+        q = as_dev(rng.standard_normal(S) / S)
+        merged = (solver.grid_src_x, solver.grid_src_y, q, solver._dense_tx,
+                  solver._dense_ty, k)
+        e, ms, plain_ms = compare(*mh, f"{name} merged sigma_g -> "
+                                  "pna+interface", merged, timed=True,
+                                  plain_reps=2)
+        errs.append(e)
+        bnd, by, counts = mh_bound_ms(*merged[:2], *merged[3:])
+        print(f"# mh_slp_apply {name} merged: pairs by branch {counts}, "
+              f"bound {bnd:.4f} ms ({by})", flush=True)
+        src = bie.src_list[0].dev(dev)
+        n = src["x"].shape[0]
+        errs.append(compare(*mh, f"{name} BIE source -> physical grid",
+                            (src["x"], src["y"], q[:n].contiguous(),
+                             bie.phys_x, bie.phys_y, k))[0])
+        f0, tx, ty, gsx, gsy, gw = bie.radial_plans[0][0].groups[0]
+        errs.append(compare(*mh, f"{name} BIE source -> radial rows "
+                            f"(stride {f0})", (gsx, gsy, gw, tx, ty, k))[0])
+
+        def run():
+            ue, stats = solver.solve_with_stats(f, tol=GMRES_TOL, maxiter=100,
+                                                restart=30)
+            ue = bie.apply_bc(ue, bc)
+            torch.cuda.synchronize()
+            return ue, stats
+
+        (ue, stats), launches, first_s, warm = timed_runs(run, counters)
+        grid_err, rad_err = max_err(ebdyc, ue, mh_sol)
+        err = max(grid_err, rad_err)
+        iters = stats["annular_iterations"][0]
+        resid = stats["annular_residuals"][0]
+        print(f"# {name} solve: first {first_s * 1e3:.1f} ms, warm median "
+              f"{statistics.median(warm) * 1e3:.1f} ms "
+              f"(runs {', '.join(f'{w * 1e3:.1f}' for w in warm)} ms), "
+              f"{iters} GMRES iterations, residual {resid:.3e}, max error "
+              f"{err:.3e} (grid {grid_err:.3e}, radial {rad_err:.3e}; limit "
+              f"{limit:.3g}), launches {launches}", flush=True)
+        if not (math.isfinite(err) and err < limit):
+            raise RuntimeError(f"{name} error {err:.3e} >= {limit}")
+        if not resid <= GMRES_TOL:
+            raise RuntimeError(f"{name} annular GMRES residual {resid:.3e} "
+                               f"> {GMRES_TOL}")
+        if launches["mh_slp"] <= 0:
+            raise RuntimeError(f"the {name} solve launched no mh_slp kernel")
+        total_launches += launches["mh_slp"]
+        if entry is None:      # the kernels line times the k = 2 merged apply
+            entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
+                     "bound_by": by}
+    print(f"# mh phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return {"name": "mh_slp", "route": "cuda",
+            "source": "ipde_tpu_torch/csrc/mh_slp.cu",
+            "replaces": "ipde_tpu/ops/pallas_ds.py:495",
+            "launches": total_launches, "max_abs_err": max(errs), **entry,
+            "library_ms": None}
+
+
 def main():
     t_start = time.perf_counter()
     # ---- phase 1: device, card, build ------------------------------------
@@ -461,19 +707,24 @@ def main():
     print(f"# torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for lib in [pool.submit(K.load_library), pool.submit(SK.load_library)]:
+    loaders = (K.load_library, K.load_grad_library, K.load_mh_library,
+               SK.load_library)
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        for lib in [pool.submit(fn) for fn in loaders]:
             lib.result()
-    print(f"# build laplace_slp.cu + stokes_slp.cu: "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"# build laplace_slp.cu + laplace_grad.cu + mh_slp.cu + "
+          f"stokes_slp.cu: {time.perf_counter() - t0:.2f} s", flush=True)
     counters = {"laplace_slp": K.laplace_slp_apply,
+                "laplace_grad": K.laplace_slp_grad_apply,
+                "mh_slp": K.mh_slp_apply,
                 "stokes_slp": SK.stokes_slp_apply}
 
-    # ---- phases 2 and 3: each main path, its kernels held to the plain ---
-    kernels = [poisson_phase(dev, K, counters),
-               stokes_phase(dev, SK, counters)]
+    # ---- phases 2-4: each main path, its kernels held to the plain -------
+    kernels = [*poisson_phase(dev, K, counters),
+               stokes_phase(dev, SK, counters),
+               mh_phase(dev, K, counters)]
 
-    # ---- phase 4: results --------------------------------------------------
+    # ---- phase 5: results --------------------------------------------------
     print(f"# total {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -32,7 +32,8 @@ import torch
 
 from ipde_tpu_torch.geometry.curve import BoundaryCurve
 from ipde_tpu_torch.ops.kernels import (_MIN_R2, _PLAIN_CHUNK_ELEMS,
-                                        build_library, check_f64_1d)
+                                        _launch, build_library,
+                                        check_f64_1d)
 from ipde_tpu_torch.ops.singular import log_quad_circulant
 
 
@@ -211,14 +212,10 @@ def stokes_slp_apply(sx, sy, wfx, wfy, tx, ty):
         return u, v, p
     if S == 0:
         return u.zero_(), v.zero_(), p.zero_()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = load_library()(
-        sx.data_ptr(), sy.data_ptr(), wfx.data_ptr(), wfy.data_ptr(), S,
-        tx.data_ptr(), ty.data_ptr(), u.data_ptr(), v.data_ptr(),
-        p.data_ptr(), T, dev.index, stream)
-    if err != 0:
-        raise RuntimeError(f"stokes_slp kernel launch failed: "
-                           f"cudaError_t {err}")
+    _launch("stokes_slp", load_library(),
+            (sx.data_ptr(), sy.data_ptr(), wfx.data_ptr(), wfy.data_ptr(), S,
+             tx.data_ptr(), ty.data_ptr(), u.data_ptr(), v.data_ptr(),
+             p.data_ptr(), T), dev)
     stokes_slp_apply.launches += 1
     return u, v, p
 

@@ -129,3 +129,22 @@ def laplace_qfs(curve: BoundaryCurve, source: BoundaryCurve, interior: bool,
     A = sq.laplace_slp_naive(source, curve.x, curve.y)
     return QFSEvaluator(source, curve, forms, A, rcond,
                         build_u2s=build_u2s, device=device)
+
+
+def mh_qfs(curve: BoundaryCurve, source: BoundaryCurve, interior: bool,
+           k: float, slp: bool = True, dlp: bool = True,
+           rcond: float = 1e-15, build_u2s: bool = True, *,
+           device) -> QFSEvaluator:
+    """Modified Helmholtz (Yukawa) QFS, as ``laplace_qfs`` with the kernel
+    K0(k r) / (2 pi); the self forms oversample the curve at high k
+    (ops/singular.py ``_self_oversampling``)."""
+    jump = -0.5 if interior else 0.5
+    N = curve.N
+    forms = []
+    if slp:
+        forms.append(sq.mh_slp_self(curve, k))
+    if dlp:
+        forms.append(sq.mh_dlp_self(curve, k) + jump * np.eye(N))
+    A = sq.mh_slp_naive(source, curve.x, curve.y, k)
+    return QFSEvaluator(source, curve, forms, A, rcond,
+                        build_u2s=build_u2s, device=device)

@@ -169,6 +169,13 @@ class AnnularScalarSolver:
                                      "residual": res.residual}
 
 
+class AnnularModifiedHelmholtzSolver(AnnularScalarSolver):
+    """(k^2 - Lap) u = f (reference: ipde/annular/modified_helmholtz.py:90)."""
+
+    def __init__(self, geom: AnnularGeometry, k: float, *, device, **bc):
+        super().__init__(geom, helmholtz_k=k, device=device, **bc)
+
+
 class AnnularPoissonSolver(AnnularScalarSolver):
     """Lap u = f (reference: ipde/annular/poisson.py:3-21); the reference
     solves (0 - Lap) u = -f, i.e. negates f; so does build_rhs, and 'solve'

@@ -1,4 +1,4 @@
-"""Boundary integral equations for the physical Dirichlet boundary condition.
+"""Boundary integral equations for the physical boundary conditions.
 
 After the inhomogeneous solve, the PDE residual is a homogeneous solution
 determined by a dense BIE on the true boundaries (reference: done in the
@@ -8,7 +8,9 @@ plus dense layer evaluations in the CUDA kernel.
 
 Dirichlet representation: u_H = sum_j DLP_j[tau_j], collocated on every
 boundary with the one-sided limit taken from the physical side; for Stokes
-the DLP is the stresslet, with the normal-flux rank completion.
+the DLP is the stresslet, with the normal-flux rank completion.  Neumann
+representation: u_H = sum_j SLP_j[sigma_j], collocating the normal
+derivative from the physical side.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.ops import singular as sq
 from ipde_tpu_torch.ops import stokes_kernels as sk
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
-from ipde_tpu_torch.solvers.scalar import ScalarSolver
+from ipde_tpu_torch.solvers.scalar import ModifiedHelmholtzSolver, ScalarSolver
 from ipde_tpu_torch.solvers.vector import StokesSolver, stokes_qfs
 
 
@@ -34,7 +36,47 @@ def _invert_system(blocks, offs) -> np.ndarray:
     return np.linalg.inv(A)
 
 
-class DirichletBIE:
+class _ScalarBIE:
+    """What the scalar BIEs share: their targets (every physical grid point
+    and the radial grids) and the evaluation of their effective densities
+    there through the solver's kernel."""
+
+    def _make_targets(self, ebdyc, dev):
+        """The stratified radial plans [target ebdy i][source boundary j]
+        of ``self.src_list`` and the physical grid points (pna +
+        in-annulus)."""
+        self.radial_plans = [
+            [StratifiedRadialApply(src, e.radial_x, e.radial_y,
+                                   k_density=ej.bdy.N // 2, device=dev)
+             for src, ej in zip(self.src_list, ebdyc)]
+            for e in ebdyc]
+        phys = ebdyc.phys
+        self.phys_flat = torch.as_tensor(np.flatnonzero(phys), device=dev)
+        self.phys_x = torch.as_tensor(ebdyc.grid.xg[phys], device=dev)
+        self.phys_y = torch.as_tensor(ebdyc.grid.yg[phys], device=dev)
+
+    def _add_fields(self, ue: EmbeddedFunction, sigmas) -> EmbeddedFunction:
+        """ue plus the field of each effective density ``sigmas[j]`` on
+        ``self.src_list[j]`` at all physical grid points and every radial
+        grid."""
+        solver = self.solver
+        grid_vals = torch.zeros_like(self.phys_x)
+        for src, sig in zip(self.src_list, sigmas):
+            grid_vals = grid_vals + solver._apply(src, sig, self.phys_x,
+                                                  self.phys_y)
+        new_grid = ue.grid.reshape(-1).index_add(0, self.phys_flat,
+                                                 grid_vals)\
+            .reshape(ue.grid.shape)
+        new_radials = list(ue.radials)
+        for j, sig in enumerate(sigmas):
+            for i in range(len(new_radials)):
+                new_radials[i] = new_radials[i] + self.radial_plans[i][j].apply(
+                    lambda sx, sy, ws, f, tx, ty: solver._apply_raw(
+                        sx, sy, sig[::f] * ws, tx, ty))
+        return EmbeddedFunction(new_grid, new_radials)
+
+
+class DirichletBIE(_ScalarBIE):
     """Dense Dirichlet BIE for a ScalarSolver's boundary collection; its
     tensors live on the collection's device."""
 
@@ -53,34 +95,33 @@ class DirichletBIE:
         self.qfs_list = []
         self.src_list = []
         for e in ebdyc:
-            src = e.qfs_source_for_side("bdy", interior_eval=e.interior)
+            src = e.qfs_source_for_side("bdy", interior_eval=e.interior,
+                                        alpha=solver._qfs_alpha(e))
             self.src_list.append(src)
             self.qfs_list.append(
                 solver._make_qfs(e.bdy, src, e.interior, build_u2s=False))
-        # stratified subsampling plans [target ebdy i][source boundary j]
-        self.radial_plans = [
-            [StratifiedRadialApply(src, e.radial_x, e.radial_y,
-                                   k_density=ej.bdy.N // 2, device=dev)
-             for src, ej in zip(self.src_list, ebdyc)]
-            for e in ebdyc]
-        # all physical grid points (pna + in-annulus)
-        phys = ebdyc.phys
-        self.phys_flat = torch.as_tensor(np.flatnonzero(phys), device=dev)
-        self.phys_x = torch.as_tensor(ebdyc.grid.xg[phys], device=dev)
-        self.phys_y = torch.as_tensor(ebdyc.grid.yg[phys], device=dev)
+        self._make_targets(ebdyc, dev)
 
     def _dlp_block(self, ei, ej):
         """Representation: interior boundary -> DLP[tau]; inclusion
         (exterior) boundary -> (DLP + SLP)[tau].  The Laplace exterior DLP
         alone is rank-deficient (DLP of a constant density vanishes outside
         a closed curve); adding the SLP of the SAME density restores full
-        rank consistently -- the evaluation uses the identical combination."""
+        rank consistently -- the evaluation uses the identical combination.
+        The Yukawa DLP is complete for inclusions: no SLP added there."""
+        solver = self.solver
+        is_mh = isinstance(solver, ModifiedHelmholtzSolver)
         if ei is ej:
-            D = sq.laplace_dlp_self(ej.bdy)
-            if not ej.interior:
-                D = D + sq.laplace_slp_self(ej.bdy)
+            if is_mh:
+                D = sq.mh_dlp_self(ej.bdy, solver.k)
+            else:
+                D = sq.laplace_dlp_self(ej.bdy)
+                if not ej.interior:
+                    D = D + sq.laplace_slp_self(ej.bdy)
             jump = -0.5 if ej.interior else 0.5
             return D + jump * np.eye(ej.bdy.N)
+        if is_mh:
+            return sq.mh_dlp_naive(ej.bdy, ei.bdy.x, ei.bdy.y, solver.k)
         D = sq.laplace_dlp_naive(ej.bdy, ei.bdy.x, ei.bdy.y)
         if not ej.interior:
             D = D + sq.laplace_slp_naive(ej.bdy, ei.bdy.x, ei.bdy.y)
@@ -96,24 +137,74 @@ class DirichletBIE:
         taus = [tau[self.offs[i]:self.offs[i + 1]]
                 for i in range(len(self.ebdyc.ebdys))]
         # effective sources; QFS forms are [slp, dlp].  Laplace inclusions
-        # use (SLP + DLP) of the same density (see _dlp_block); interior
-        # boundaries are DLP-only.
-        sigmas = [q([t if not e.interior else torch.zeros_like(t), t])
+        # use (SLP + DLP) of the same density (see _dlp_block); everything
+        # else is DLP-only.
+        is_mh = isinstance(solver, ModifiedHelmholtzSolver)
+        sigmas = [q([t if not (e.interior or is_mh) else torch.zeros_like(t),
+                     t])
                   for q, t, e in zip(self.qfs_list, taus, self.ebdyc)]
-        # evaluate onto all physical grid points and every radial grid
-        grid_vals = torch.zeros_like(self.phys_x)
-        for src, sig in zip(self.src_list, sigmas):
-            grid_vals = grid_vals + solver._apply(src, sig, self.phys_x,
-                                                  self.phys_y)
-        new_grid = ue.grid.reshape(-1).index_add(0, self.phys_flat, grid_vals)\
-            .reshape(ue.grid.shape)
-        new_radials = list(ue.radials)
-        for j, sig in enumerate(sigmas):
-            for i in range(len(self.ebdyc.ebdys)):
-                new_radials[i] = new_radials[i] + self.radial_plans[i][j].apply(
-                    lambda sx, sy, ws, f, tx, ty: solver._apply_raw(
-                        sx, sy, sig[::f] * ws, tx, ty))
-        return EmbeddedFunction(new_grid, new_radials)
+        return self._add_fields(ue, sigmas)
+
+
+class NeumannBIE(_ScalarBIE):
+    """Dense Neumann BIE for a ScalarSolver's boundary collection: u_H =
+    sum_j SLP_j[sigma_j], collocating the normal derivative from the
+    physical side (reference:
+    examples/interior_modified_helmholtz_using_multi_neumann_bc.py); its
+    tensors live on the collection's device.
+
+    For the modified Helmholtz kernel the system is well posed; for Laplace
+    an interior pure-Neumann problem carries the usual compatibility
+    condition and the constant nullspace is pinned with a mean constraint.
+    """
+
+    def __init__(self, solver: ScalarSolver):
+        self.solver = solver
+        ebdyc = solver.ebdyc
+        self.ebdyc = ebdyc
+        dev = ebdyc.device
+        is_mh = isinstance(solver, ModifiedHelmholtzSolver)
+        Ns = [e.bdy.N for e in ebdyc]
+        offs = np.concatenate([[0], np.cumsum(Ns)])
+
+        def blk(ei, ej):
+            bi, bj = ei.bdy, ej.bdy
+            if ei is ej:
+                b = (sq.mh_slp_normal_self(bj, solver.k) if is_mh
+                     else sq.laplace_slp_normal_self(bj))
+                jump = 0.5 if ej.interior else -0.5
+                return b + jump * np.eye(bj.N)
+            if is_mh:
+                return sq.mh_slp_normal_naive(bj, bi.x, bi.y, bi.normal_x,
+                                              bi.normal_y, solver.k)
+            return sq.laplace_slp_normal_naive(bj, bi.x, bi.y, bi.normal_x,
+                                               bi.normal_y)
+
+        blocks = [[blk(ei, ej) for ej in ebdyc] for ei in ebdyc]
+        if not is_mh and len(ebdyc.ebdys) == 1 and ebdyc.ebdys[0].interior:
+            # pin the Laplace Neumann nullspace: add mean(sigma) to all rows
+            blocks[0][0] = blocks[0][0] + ebdyc.ebdys[0].bdy.weights[None, :]
+        self.Ainv = torch.as_tensor(_invert_system(blocks, offs), device=dev)
+        self.offs = offs
+        self.qfs_list = []
+        self.src_list = []
+        for e in ebdyc:
+            src = e.qfs_source_for_side("bdy", interior_eval=e.interior,
+                                        alpha=solver._qfs_alpha(e))
+            self.src_list.append(src)
+            self.qfs_list.append(
+                solver._make_qfs_slp_only(e.bdy, src, e.interior))
+        self._make_targets(ebdyc, dev)
+
+    def apply_bc(self, ue: EmbeddedFunction,
+                 bc_n: BoundaryFunction) -> EmbeddedFunction:
+        """Correct ue so that du/dn = bc_n on every boundary."""
+        bns = self.solver.get_boundary_normal_derivatives(ue)
+        rhs = torch.cat([b - v for b, v in zip(bc_n.values, bns.values)])
+        sig = self.Ainv @ rhs
+        xis = [q([sig[self.offs[i]:self.offs[i + 1]]])
+               for i, q in enumerate(self.qfs_list)]
+        return self._add_fields(ue, xis)
 
 
 class StokesDirichletBIE:

@@ -1,7 +1,9 @@
-"""Inhomogeneous scalar solver (Poisson) on an embedded-boundary domain.
+"""Inhomogeneous scalar solvers (Poisson, modified Helmholtz) on an
+embedded-boundary domain.
 
 The solve path (reference: ipde/solvers/multi_boundary/scalar.py:72-117,
-internals/scalar.py:68-116, multi_boundary/poisson.py):
+internals/scalar.py:68-116, multi_boundary/poisson.py,
+modified_helmholtz.py):
 
   1. periodic box solve of the rolled-off forcing (torch.fft + symbol),
   2. spectral interpolation of (u, ux, uy) to all interfaces (exact
@@ -38,8 +40,9 @@ from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import kernels, singular as sq
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
-from ipde_tpu_torch.qfs.qfs import QFSEvaluator, laplace_qfs
-from ipde_tpu_torch.solvers.annular_scalar import AnnularPoissonSolver
+from ipde_tpu_torch.qfs.qfs import QFSEvaluator, laplace_qfs, mh_qfs
+from ipde_tpu_torch.solvers.annular_scalar import (
+    AnnularModifiedHelmholtzSolver, AnnularPoissonSolver)
 
 
 class _ScalarHelper:
@@ -55,10 +58,11 @@ class _ScalarHelper:
         self.annular_solver = solver._make_annular_solver(geom)
         self.metric = AnnularMetric(ebdy.bdy.speed, ebdy.bdy.curvature, geom)
         ifc = ebdy.interface
+        alpha = solver._qfs_alpha(ebdy)
         self.grid_source = ebdy.qfs_source_for_side(
-            "interface", interior_eval=self.interior)
+            "interface", interior_eval=self.interior, alpha=alpha)
         self.radial_source = ebdy.qfs_source_for_side(
-            "interface", interior_eval=not self.interior)
+            "interface", interior_eval=not self.interior, alpha=alpha)
         # qfs_g's u2s map is never consumed (only qfs_r.u2s in correct)
         self.qfs_g = solver._make_qfs(ifc, self.grid_source, self.interior,
                                       build_u2s=False)
@@ -166,11 +170,19 @@ class ScalarSolver:
         self.iteration_counts = []
 
     # -- PDE bindings (overridden) -----------------------------------------
+    def _qfs_alpha(self, ebdy):
+        """QFS source-shift override in parameter spacings (None = the
+        geometry default, 1.5; the high-k Yukawa kernel needs more)."""
+        return None
+
     def _make_annular_solver(self, geom):
         raise NotImplementedError
 
     def _make_qfs(self, curve, source, interior,
                   build_u2s: bool = True) -> QFSEvaluator:
+        raise NotImplementedError
+
+    def _make_qfs_slp_only(self, curve, source, interior) -> QFSEvaluator:
         raise NotImplementedError
 
     def _naive_form(self, src, tx, ty) -> np.ndarray:
@@ -279,6 +291,10 @@ class PoissonSolver(ScalarSolver):
         return laplace_qfs(curve, source, interior, build_u2s=build_u2s,
                            device=self.device)
 
+    def _make_qfs_slp_only(self, curve, source, interior):
+        return laplace_qfs(curve, source, interior, slp=True, dlp=False,
+                           device=self.device)
+
     def _naive_form(self, src, tx, ty):
         return sq.laplace_slp_naive(src, tx, ty)
 
@@ -301,3 +317,52 @@ class PoissonSolver(ScalarSolver):
 
     def _prepare_grid_rhs(self, fc):
         return self.ebdyc.demean_function(fc)
+
+
+class ModifiedHelmholtzSolver(ScalarSolver):
+    """(k^2 - lap) u = f (reference: multi_boundary/modified_helmholtz.py).
+
+    NOTE the sign convention: the grid solve inverts (k^2 - lap) directly,
+    so ``f`` is the right-hand side of (k^2 - lap) u = f.
+    """
+
+    def __init__(self, ebdyc, k: float, **kw):
+        self.k = float(k)
+        super().__init__(ebdyc, **kw)
+
+    def _qfs_alpha(self, ebdy):
+        """Yukawa at high k needs a larger source shift: the K0(k r)
+        quadrature tail scales with k * shift; clipped to [1.5, 3]
+        (ipde_tpu/solvers/scalar.py ModifiedHelmholtzSolver._qfs_alpha)."""
+        return float(np.clip(1.5 + 0.5 * self.k * 2.0 * np.pi
+                             / ebdy.bdy.N, 1.5, 3.0))
+
+    def _make_annular_solver(self, geom):
+        return AnnularModifiedHelmholtzSolver(geom, k=self.k,
+                                              device=self.device)
+
+    def _make_qfs(self, curve, source, interior, build_u2s: bool = True):
+        return mh_qfs(curve, source, interior, self.k, build_u2s=build_u2s,
+                      device=self.device)
+
+    def _make_qfs_slp_only(self, curve, source, interior):
+        return mh_qfs(curve, source, interior, self.k, slp=True, dlp=False,
+                      device=self.device)
+
+    def _naive_form(self, src, tx, ty):
+        return sq.mh_slp_naive(src, tx, ty, self.k)
+
+    def _apply(self, src_curve, density, tx, ty):
+        d = src_curve.dev(self.device)
+        return kernels.mh_slp_apply(d["x"], d["y"], density * d["weights"],
+                                    tx, ty, self.k)
+
+    def _apply_raw(self, sx, sy, weighted, tx, ty):
+        return kernels.mh_slp_apply(sx, sy, weighted, tx, ty, self.k)
+
+    def _apply_merged(self, sigma_g, tx, ty):
+        return kernels.mh_slp_apply(self.grid_src_x, self.grid_src_y,
+                                    sigma_g * self.grid_src_w, tx, ty, self.k)
+
+    def _grid_symbol(self):
+        return 1.0 / (self.k**2 - self.ebdyc.lap)

@@ -1,0 +1,474 @@
+"""The port's modified Helmholtz (Yukawa) slice and the Laplace gradient
+apply against ipde_tpu: the K0 split and its Chebyshev fit, the Yukawa and
+gradient applies (plain versions against numpy/scipy float64 and the XLA
+path), the annular Yukawa operators, the Yukawa QFS maps, the Dirichlet and
+Neumann BIEs, and the whole interior slices ModifiedHelmholtzSolver
+(grid_backend="dense") + DirichletBIE (k = 2) and + NeumannBIE (k = 20,
+where the self forms oversample the curve 9-fold), and PoissonSolver +
+NeumannBIE, each on star(128, a=0.1, f=3), M=8, both packages built from one
+saved geometry.  Also (marker ``slow``) the port's own MMS runs with the
+asserts of tests/test_interior_mh.py and tests/test_neumann.py, and
+(marker ``gpu``, skipped with a reason where torch sees no CUDA device) the
+CUDA kernels against their plain versions and the slice on the card against
+the CPU.
+
+Inputs are made with numpy from seeds.  Tolerances, unless stated where
+used: 1e-12 absolute for the applies (values ~1e-2, as
+tests/test_pallas_ds.py holds the Pallas kernel); bit-equal for host numpy
+maps; 1e-13 relative to the largest value for single operator applies (the
+same float64 sums in another order); 1e-10 absolute for whole slices (GMRES
+stops at 1e-12)."""
+
+import time
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from scipy.special import k0 as scipy_k0
+
+import ipde_tpu.native
+from ipde_tpu.functions import BoundaryFunction as JBF
+from ipde_tpu.functions import EmbeddedFunction as JEF
+from ipde_tpu.geometry.annular import AnnularGeometry as JAG
+from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
+from ipde_tpu.geometry.curve import star as jstar
+from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
+from ipde_tpu.ops import kernels as jkernels
+from ipde_tpu.ops import pallas_ds
+from ipde_tpu.solvers import annular_scalar as jann
+from ipde_tpu.solvers.bie import DirichletBIE as JBIE
+from ipde_tpu.solvers.bie import NeumannBIE as JNBIE
+from ipde_tpu.solvers.scalar import ModifiedHelmholtzSolver as JMH
+from ipde_tpu.solvers.scalar import PoissonSolver as JPS
+from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
+from ipde_tpu_torch.geometry.annular import AnnularGeometry
+from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
+                                                load_collection)
+from ipde_tpu_torch.geometry.curve import star
+from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
+from ipde_tpu_torch.ops import kernels
+from ipde_tpu_torch.qfs import qfs as tqfs
+from ipde_tpu_torch.solvers import annular_scalar as ann
+from ipde_tpu_torch.solvers.bie import DirichletBIE, NeumannBIE
+from ipde_tpu_torch.solvers.scalar import (ModifiedHelmholtzSolver,
+                                           PoissonSolver)
+
+NB, M = 128, 8
+SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
+
+
+# the manufactured solution of tests/test_interior_mh.py and test_neumann.py
+def sol(x, y):
+    return np.exp(np.sin(x)) * np.sin(2 * y) + 0.3 * np.cos(3 * x) * np.cos(y)
+
+
+def lap_sol(x, y):
+    u1 = np.exp(np.sin(x)) * np.sin(2 * y)
+    u1xx = np.exp(np.sin(x)) * (np.cos(x) ** 2 - np.sin(x)) * np.sin(2 * y)
+    u2 = 0.3 * np.cos(3 * x) * np.cos(y)
+    return u1xx - 4 * u1 - 10 * u2
+
+
+def grad_sol(x, y):
+    ux = (np.cos(x) * np.exp(np.sin(x)) * np.sin(2 * y)
+          - 0.9 * np.sin(3 * x) * np.cos(y))
+    uy = 2 * np.exp(np.sin(x)) * np.cos(2 * y) - 0.3 * np.cos(3 * x) * np.sin(y)
+    return ux, uy
+
+
+def _np(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _rel(got, want):
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape
+    return np.abs(got - want).max() / np.abs(want).max()
+
+
+def _ds_round(x):
+    hi = x.astype(np.float32).astype(np.float64)
+    lo = (x - hi).astype(np.float32).astype(np.float64)
+    return hi + lo
+
+
+def _cloud(T=700, S=300, seed=5, near=True):
+    """tests/test_pallas_ds.py's near-coincident cloud (sx, sy, q, tx, ty)."""
+    rng = np.random.default_rng(seed)
+    sx = np.cos(2 * np.pi * np.arange(S) / S) * (1 + 0.05 * rng.standard_normal(S))
+    sy = np.sin(2 * np.pi * np.arange(S) / S) * (1 + 0.05 * rng.standard_normal(S))
+    r = 0.8 * np.sqrt(rng.uniform(0.01, 1, T))
+    th = rng.uniform(0, 2 * np.pi, T)
+    tx = r * np.cos(th)
+    ty = r * np.sin(th)
+    if near:
+        k = min(32, T, S)
+        tx[:k] = sx[:k] + 10.0 ** rng.uniform(-4, -2, k)
+        ty[:k] = sy[:k] + 10.0 ** rng.uniform(-4, -2, k)
+    q = rng.standard_normal(S) / S
+    return tuple(_ds_round(a) for a in (sx, sy, q, tx, ty))
+
+
+def _mms_err(ebdyc, ue):
+    e = ebdyc.ebdys[0]
+    g = np.abs(_np(ue.grid) - sol(ebdyc.grid.xg, ebdyc.grid.yg))[ebdyc.phys]
+    r = np.abs(_np(ue.radials[0]) - sol(e.radial_x, e.radial_y))
+    return max(g.max(), r.max())
+
+
+# ---------------------------------------------------------------------------
+# K0 and the applies
+# ---------------------------------------------------------------------------
+
+def test_k0_split_matches_scipy():
+    # tests/test_pallas_ds.py::test_k0_ds_accuracy's points and bound
+    z = np.concatenate([10.0 ** np.linspace(-8, 0.3, 1001),
+                        np.linspace(0.5, 40.0, 2001)])
+    got = _np(kernels.k0_split(torch.as_tensor(z), torch.as_tensor(z * z / 4)))
+    err = np.abs(got - np.where(z > 36.0, 0.0, scipy_k0(z)))
+    bound = 2e-14 + np.abs(np.log(z * z / 4.0)) * 2.0 ** -47
+    assert (err / bound).max() < 1.0, (err / bound).max()
+
+
+def test_k0_cheb_coeffs_match_pallas_fit():
+    coeffs, lo, hi, _, _ = pallas_ds._k0_cheb_ds()
+    want = np.array([h + l for h, l in coeffs])   # the ds pairs, summed
+    got = kernels.k0_cheb_coeffs()
+    assert (lo, hi) == (kernels.K0_CHEB_LO, kernels.K0_CHEB_HI)
+    assert got.shape == want.shape == (kernels.K0_CHEB_DEG,)
+    # a ds pair holds ~48 bits: 2^-48 ~ 3.6e-15 relative
+    assert (np.abs(got - want) / np.abs(want)).max() < 1e-14
+
+
+@pytest.mark.parametrize("k", [1.0, 20.0])
+def test_mh_plain_matches_scipy(k):
+    sx, sy, q, tx, ty = _cloud()
+    got = _np(kernels.mh_slp_apply(*map(torch.as_tensor, (sx, sy, q, tx, ty)),
+                                   k))
+    r = np.sqrt((tx[:, None] - sx) ** 2 + (ty[:, None] - sy) ** 2)
+    want = (scipy_k0(k * r) @ q) / (2 * np.pi)
+    assert np.abs(got - want).max() < 1e-12
+
+
+@pytest.mark.parametrize("k,seed,near", [(1.0, 5, True), (20.0, 6, False),
+                                         (100.0, 7, True)])
+def test_mh_plain_matches_xla_path(k, seed, near):
+    args = _cloud(seed=seed, near=near)
+    want = np.asarray(jkernels.mh_slp_apply(*map(jnp.asarray, args), k))
+    got = _np(kernels.mh_slp_apply(*map(torch.as_tensor, args), k))
+    assert np.abs(got - want).max() < 1e-12
+
+
+def test_grad_plain_matches_xla_path_and_numpy():
+    sx, sy, q, tx, ty = _cloud(seed=1)
+    gx, gy = map(_np, kernels.laplace_slp_grad_apply(
+        *map(torch.as_tensor, (sx, sy, q, tx, ty))))
+    dx = tx[:, None] - sx
+    dy = ty[:, None] - sy
+    ir2 = 1.0 / (dx * dx + dy * dy)
+    wx = (-dx * ir2) @ q / (2 * np.pi)
+    wy = (-dy * ir2) @ q / (2 * np.pi)
+    jx, jy = map(np.asarray, jkernels.laplace_slp_grad_apply(
+        *map(jnp.asarray, (sx, sy, q, tx, ty))))
+    # near-coincident rows have |grad| ~ 1e7: relative to the row scale
+    scale = np.maximum(1.0, np.abs(wx) + np.abs(wy))
+    for got, want in ((gx, wx), (gy, wy), (gx, jx), (gy, jy)):
+        assert (np.abs(got - want) / scale).max() < 1e-12
+
+
+def test_wrappers_check_and_take_the_cpu_route():
+    sx, sy, q, tx, ty = (torch.as_tensor(a) for a in _cloud(T=64, S=32))
+    before = (kernels.mh_slp_apply.launches,
+              kernels.laplace_slp_grad_apply.launches)
+    out = kernels.mh_slp_apply(sx, sy, q, tx, ty, 3.0)
+    assert torch.equal(out, kernels.mh_slp_apply_plain(sx, sy, q, tx, ty, 3.0))
+    g = kernels.laplace_slp_grad_apply(sx, sy, q, tx, ty)
+    for a, b in zip(g, kernels.laplace_slp_grad_apply_plain(sx, sy, q, tx, ty)):
+        assert torch.equal(a, b)
+    assert (kernels.mh_slp_apply.launches,
+            kernels.laplace_slp_grad_apply.launches) == before
+    for bad_k in (0.0, -1.0, float("nan")):
+        with pytest.raises(ValueError, match="k must be"):
+            kernels.mh_slp_apply(sx, sy, q, tx, ty, bad_k)
+    with pytest.raises(TypeError):
+        kernels.mh_slp_apply(sx.float(), sy, q, tx, ty, 1.0)
+    with pytest.raises(ValueError):
+        kernels.laplace_slp_grad_apply(sx, sy, q[:-1], tx, ty)
+    # coincident pair: r^2 clamped at 1e-30, the sums stay finite
+    tx[0], ty[0] = sx[3], sy[3]
+    assert torch.isfinite(kernels.mh_slp_apply(sx, sy, q, tx, ty, 2.0)).all()
+    assert all(torch.isfinite(a).all()
+               for a in kernels.laplace_slp_grad_apply(sx, sy, q, tx, ty))
+
+
+# ---------------------------------------------------------------------------
+# the slices, from one saved geometry
+# ---------------------------------------------------------------------------
+
+def _wait_native():
+    for _ in range(20):   # see test_torch_geometry.pair
+        if ipde_tpu.native.get_lib() is not None:
+            break
+        time.sleep(0.5)
+    assert ipde_tpu.native.get_lib() is not None
+
+
+def _build(k, neumann):
+    """The problem solved by ipde_tpu (dense grid backend), and the port's
+    solver and BIE built from the saved geometry.  k None: Poisson."""
+    _wait_native()
+    bdy = jstar(NB, a=0.1, f=3)
+    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
+    jc = JEBC([JEB(bdy, True, M, bh, qfs_tolerance=1e-12)])
+    jc.generate_grid(bh)
+    if k is None:
+        frc = lap_sol
+        js = JPS(jc, grid_backend="dense")
+    else:
+        frc = lambda x, y: k ** 2 * sol(x, y) - lap_sol(x, y)  # noqa: E731
+        js = JMH(jc, k=k, grid_backend="dense")
+    jf = JEF.from_function(jc, frc)
+    if neumann:
+        ux, uy = grad_sol(bdy.x, bdy.y)
+        jbc = JBF([ux * bdy.normal_x + uy * bdy.normal_y])
+        jb = JNBIE(js)
+    else:
+        jbc = JBF.from_function(jc, sol)
+        jb = JBIE(js)
+    jue_raw, jst = js.solve_with_stats(jf, **SOLVE)
+    jue = jb.apply_bc(jue_raw, jbc)
+    tc = load_collection(jc.save(), "cpu")
+    tc.generate_grid(bh)
+    ts = PoissonSolver(tc) if k is None else ModifiedHelmholtzSolver(tc, k=k)
+    tb = (NeumannBIE if neumann else DirichletBIE)(ts)
+    tbc = BoundaryFunction([torch.tensor(np.asarray(v)) for v in jbc.values])
+    return dict(jc=jc, js=js, jb=jb, jue_raw=jue_raw, jue=jue, jst=jst, tc=tc,
+                ts=ts, tb=tb, tf=EmbeddedFunction.load(jf.save(), "cpu"),
+                tbc=tbc)
+
+
+@pytest.fixture(scope="module")
+def mh_dirichlet():
+    return _build(2.0, neumann=False)
+
+
+@pytest.fixture(scope="module")
+def mh_neumann():
+    return _build(20.0, neumann=True)
+
+
+def test_annular_mh_matvec_and_precond(mh_dirichlet):
+    jh, th = mh_dirichlet["js"].helpers[0], mh_dirichlet["ts"].helpers[0]
+    assert isinstance(th.annular_solver, ann.AnnularModifiedHelmholtzSolver)
+    jops = jh.annular_solver.make_ops(jh.metric)
+    tops = th.annular_solver.make_ops(th.metric)
+    assert tops.helm_k2 == 4.0
+    Mr, n = th.annular_solver.M, th.annular_solver.n
+    assert np.array_equal(_np(jops.Kinv), _np(tops.Kinv))
+    rng = np.random.default_rng(15)
+    for _ in range(2):
+        u = rng.standard_normal(Mr * n)
+        assert _rel(ann._matvec(tops, torch.as_tensor(u), Mr, n),
+                    jann._matvec(jops, jnp.asarray(u), Mr, n)) < 1e-13
+        assert _rel(ann._precond(tops, torch.as_tensor(u), Mr, n),
+                    jann._precond(jops, jnp.asarray(u), Mr, n)) < 1e-13
+
+
+def test_annular_mh_solver_alone():
+    """AnnularModifiedHelmholtzSolver built directly, as ipde_tpu's is:
+    the same per-mode inverses, Robin rows included."""
+    e = EmbeddedBoundary(star(64, a=0.1, f=3), True, 8, 0.05)
+    dims = (64, 8, e.lb, e.ub, e.approximate_radius)
+    bc = dict(la=1.0, lb_c=0.5, ua=2.0, ub_c=-0.25)
+    tsol = ann.AnnularModifiedHelmholtzSolver(AnnularGeometry(*dims), 3.0,
+                                              device="cpu", **bc)
+    jsol = jann.AnnularModifiedHelmholtzSolver(JAG(*dims), 3.0, **bc)
+    assert tsol.helmholtz_k == 3.0
+    assert np.array_equal(_np(tsol.ops_static["Kinv"]),
+                          _np(jsol.ops_static["Kinv"]))
+    assert np.array_equal(_np(tsol.ops_static["row_ub"]),
+                          _np(jsol.ops_static["row_ub"]))
+
+
+def test_mh_qfs_maps_bit_equal(mh_dirichlet, mh_neumann):
+    for p in (mh_dirichlet, mh_neumann):
+        jh, th = p["js"].helpers[0], p["ts"].helpers[0]
+        # the QFS sources moved by the Yukawa shift alpha
+        assert np.array_equal(jh.grid_source.x, th.grid_source.x)
+        assert np.array_equal(jh.radial_source.y, th.radial_source.y)
+        pairs = [(jh.qfs_g, th.qfs_g), (jh.qfs_r, th.qfs_r)]
+        pairs += list(zip(p["jb"].qfs_list, p["tb"].qfs_list))
+        for jq, tq in pairs:
+            assert len(jq.mats) == len(tq.mats)
+            for jm, tm in zip(jq.mats, tq.mats):
+                assert np.array_equal(_np(jm), _np(tm))
+        assert np.array_equal(_np(jh.qfs_r.u2s_mat), _np(th.qfs_r.u2s_mat))
+        assert np.array_equal(_np(jh.own_src_to_ifc), _np(th.own_src_to_ifc))
+        assert np.array_equal(_np(p["jb"].Ainv), _np(p["tb"].Ainv))
+    # mh_qfs called directly, SLP only, as NeumannBIE builds it
+    e = mh_neumann["tc"].ebdys[0]
+    src = e.qfs_source_for_side("bdy", True, alpha=2.0)
+    from ipde_tpu.qfs.qfs import mh_qfs as jmh_qfs
+    jq = jmh_qfs(e.bdy, src, True, 20.0, slp=True, dlp=False)
+    tq = tqfs.mh_qfs(e.bdy, src, True, 20.0, slp=True, dlp=False,
+                     device="cpu")
+    assert len(tq.mats) == 1
+    assert np.array_equal(_np(jq.mats[0]), _np(tq.mats[0]))
+    assert np.array_equal(_np(jq.u2s_mat), _np(tq.u2s_mat))
+
+
+# the Neumann correction at k = 20 goes through the normal-derivative BIE
+# inverse and QFS maps built on the 9-fold oversampled self forms, whose
+# norms are ~10x the Dirichlet ones: 1e-12 there (measured 1.1e-13)
+@pytest.mark.parametrize("which,tol", [("mh_dirichlet", 1e-13),
+                                       ("mh_neumann", 1e-12)])
+def test_bie_apply_bc(which, tol, request):
+    p = request.getfixturevalue(which)
+    # the BIE correction of one and the same inhomogeneous solution
+    ue = EmbeddedFunction.load(p["jue_raw"].save(), "cpu")
+    got = p["tb"].apply_bc(ue, p["tbc"])
+    assert _rel(got.grid, p["jue"].grid) < tol
+    assert _rel(got.radials[0], p["jue"].radials[0]) < tol
+
+
+@pytest.mark.parametrize("which", ["mh_dirichlet", "mh_neumann"])
+def test_whole_mh_slice_matches_reference(which, request):
+    p = request.getfixturevalue(which)
+    ts, tb = p["ts"], p["tb"]
+    assert ts.grid_backend == "dense"
+    ue_raw, st = ts.solve_with_stats(p["tf"], **SOLVE)
+    ue = tb.apply_bc(ue_raw, p["tbc"])
+    assert st["annular_residuals"][0] <= SOLVE["tol"]
+    assert abs(st["annular_iterations"][0]
+               - int(p["jst"]["annular_iterations"][0])) <= 1
+    # GMRES stops at 1e-12 and the sums are ordered differently: 1e-10
+    # absolute on an O(1) solution (measured 1.1e-13 Dirichlet k = 2,
+    # 3.1e-13 Neumann k = 20)
+    jue = p["jue"]
+    diff = max(np.abs(_np(ue.grid) - _np(jue.grid)).max(),
+               np.abs(_np(ue.radials[0]) - _np(jue.radials[0])).max())
+    print(f"{which}: max |port - ipde_tpu| = {diff:.3e}")
+    assert diff <= 1e-10
+    terr, jerr = _mms_err(ts.ebdyc, ue), _mms_err(p["jc"], jue)
+    assert 0.5 * jerr <= terr <= 2.0 * jerr, (terr, jerr)
+
+
+def test_laplace_neumann_matches_reference():
+    p = _build(None, neumann=True)
+    jb, tb = p["jb"], p["tb"]
+    assert np.array_equal(_np(jb.Ainv), _np(tb.Ainv))
+    assert len(tb.qfs_list[0].mats) == 1          # SLP-only QFS
+    ue_raw, _ = p["ts"].solve_with_stats(p["tf"], **SOLVE)
+    ue = tb.apply_bc(ue_raw, p["tbc"])
+    jue = p["jue"]
+    diff = max(np.abs(_np(ue.grid) - _np(jue.grid)).max(),
+               np.abs(_np(ue.radials[0]) - _np(jue.radials[0])).max())
+    print(f"laplace neumann: max |port - ipde_tpu| = {diff:.3e}")
+    assert diff <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# the port alone: the MMS asserts of the JAX package's own tests
+# ---------------------------------------------------------------------------
+
+# Both cases run the plain torch Yukawa sum over ~1e8-7e8 pairs: 4 s and
+# 16 s in a process of their own on 8 threads, 27 s and 87 s on one, but
+# 820 s and 798 s beside the other workers of the 6-worker tier-1 command
+# (oversubscribed threads), so both are marked slow.
+@pytest.mark.slow
+@pytest.mark.parametrize("nb,Mr,neumann,limit", [
+    (800, 20, False, 2.5e-10),    # tests/test_interior_mh.py
+    (400, 16, True, 2e-9),        # tests/test_neumann.py
+])
+def test_port_mms(nb, Mr, neumann, limit):
+    k = 2.0
+    bdy = star(nb, a=0.2, f=5)
+    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / Mr)
+    ebdyc = EmbeddedBoundaryCollection(
+        [EmbeddedBoundary(bdy, True, Mr, bh, qfs_tolerance=1e-14)],
+        device="cpu")
+    ebdyc.generate_grid(bh)
+    solver = ModifiedHelmholtzSolver(ebdyc, k=k)
+    if neumann:
+        ux, uy = grad_sol(bdy.x, bdy.y)
+        bc = BoundaryFunction(
+            [torch.as_tensor(ux * bdy.normal_x + uy * bdy.normal_y)])
+        bie = NeumannBIE(solver)
+    else:
+        bc = BoundaryFunction.from_function(ebdyc, sol)
+        bie = DirichletBIE(solver)
+    f = EmbeddedFunction.from_function(
+        ebdyc, lambda x, y: k ** 2 * sol(x, y) - lap_sol(x, y))
+    ue = bie.apply_bc(solver(f, tol=1e-12), bc)
+    err = _mms_err(ebdyc, ue)
+    print(f"port MMS nb={nb} M={Mr} neumann={neumann}: error {err:.3e}")
+    assert err < limit
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,S,seed,k", [(700, 300, 5, 1.0), (700, 300, 5, 20.0),
+                                        (70001, 3001, 4, 2.0), (1, 1, 6, 2.0),
+                                        (257, 255, 7, 100.0)])
+def test_cuda_kernels_match_plain(T, S, seed, k):
+    dev = _cuda()
+    sx, sy, q, tx, ty = (torch.as_tensor(a, device=dev)
+                         for a in _cloud(T=T, S=S, seed=seed))
+    before = kernels.mh_slp_apply.launches
+    got = kernels.mh_slp_apply(sx, sy, q, tx, ty, k)
+    torch.cuda.synchronize()
+    assert kernels.mh_slp_apply.launches == before + 1
+    want = kernels.mh_slp_apply_plain(sx, sy, q, tx, ty, k)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    before = kernels.laplace_slp_grad_apply.launches
+    g = kernels.laplace_slp_grad_apply(sx, sy, q, tx, ty)
+    torch.cuda.synchronize()
+    assert kernels.laplace_slp_grad_apply.launches == before + 1
+    w = kernels.laplace_slp_grad_apply_plain(sx, sy, q, tx, ty)
+    scale = (w[0].abs() + w[1].abs()).clamp_min(1.0)
+    for a, b in zip(g, w):
+        assert float(((a - b).abs() / scale).max()) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_mh_slice_on_cuda_matches_cpu():
+    """MH + DirichletBIE (k = 2) and + NeumannBIE (k = 20) on
+    star(128, a=0.1, f=3), M=8, on the GPU and on the CPU."""
+    dev = _cuda()
+    for k, bie_cls in ((2.0, DirichletBIE), (20.0, NeumannBIE)):
+        out = {}
+        for d in ("cpu", dev):
+            bdy = star(NB, a=0.1, f=3)
+            bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
+            ebdyc = EmbeddedBoundaryCollection(
+                [EmbeddedBoundary(bdy, True, M, bh, qfs_tolerance=1e-12)],
+                device=d)
+            ebdyc.generate_grid(bh)
+            solver = ModifiedHelmholtzSolver(ebdyc, k=k)
+            bie = bie_cls(solver)
+            if bie_cls is NeumannBIE:
+                ux, uy = grad_sol(bdy.x, bdy.y)
+                bc = BoundaryFunction([torch.as_tensor(
+                    ux * bdy.normal_x + uy * bdy.normal_y, device=d)])
+            else:
+                bc = BoundaryFunction.from_function(ebdyc, sol)
+            f = EmbeddedFunction.from_function(
+                ebdyc, lambda x, y: k ** 2 * sol(x, y) - lap_sol(x, y))
+            before = kernels.mh_slp_apply.launches
+            ue = bie.apply_bc(solver(f, **SOLVE), bc)
+            out[str(d)] = (_np(ue.grid), _np(ue.radials[0]),
+                           kernels.mh_slp_apply.launches - before)
+        (gc, rc, nc), (gg, rg, ng) = out["cpu"], out[str(dev)]
+        assert nc == 0 and ng > 0
+        assert np.abs(gc - gg).max() <= 1e-11
+        assert np.abs(rc - rg).max() <= 1e-11

@@ -1,21 +1,25 @@
 """Where the time of one ipde_tpu_torch solve goes, on a CUDA GPU.
 
-    python3 tools/torch_profile_solve.py [--pde poisson|stokes] [--nb 1200]
-                                         [--M 16] [--reps 3]
-                                         [--trace trace.json]
+    python3 tools/torch_profile_solve.py [--pde poisson|stokes|mh]
+                                         [--k 2|100] [--nb N] [--M M]
+                                         [--reps 3] [--trace trace.json]
 
-Builds the problem of chip_smoke.py (``--pde poisson``: the interior Poisson
-problem, star(nb, a=0.2, f=3); ``--pde stokes``: bench.py's tier-1 interior
-Stokes problem, star(nb, a=0.2, f=5) on a grid_target=1024 box), warms it
-up, then:
+Builds a problem of chip_smoke.py (``--pde poisson``: the interior Poisson
+problem, star(nb, a=0.2, f=3), nb=1200, M=16 by default; ``--pde stokes``:
+bench.py's tier-1 interior Stokes problem, star(nb, a=0.2, f=5) on a
+grid_target=1024 box, the same defaults; ``--pde mh``: the interior modified
+Helmholtz problem of chip_smoke.MH_CASES with that ``--k``: k=2 Dirichlet,
+star(800, a=0.2, f=5), M=20, or k=100 Neumann, star(600, a=0.2, f=5),
+M=24), warms it up, then:
   * times the two halves of a solve (solve_with_stats and apply_bc) on the
     host clock around torch.cuda.synchronize;
   * records the (targets, sources) of every dense-kernel launch of one
-    solve;
+    solve, and its bound (chip_smoke.bound_ms; for the Yukawa kernel
+    chip_smoke.mh_bound_ms, from the pairs of that launch in each branch);
   * traces ``--reps`` solves with torch.profiler and prints the device time
     by kernel, the device busy time, the idle share of the traced window,
     and the device time of each dense-kernel launch of the first solve
-    beside its shape and block count;
+    beside its shape, block count and bound;
   * writes the chrome trace to ``--trace`` when given.
 Needs a CUDA device; prints the card's name and power limit first.
 """
@@ -34,15 +38,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def record_launches(run, module, name):
+def record_launches(run, module, name, bound):
     """Run ``run`` once with ``module.name`` wrapped to record the
-    (targets, sources) of each call.  The wrapper counts its launches in
-    the attribute of its module-level name, so the stand-in carries it."""
+    (targets, sources, bound(*args)) of each call.  The wrapper counts its
+    launches in the attribute of its module-level name, so the stand-in
+    carries it."""
     orig = getattr(module, name)
     shapes = []
 
     def wrapped(*args):
-        shapes.append((args[-1].shape[0], args[0].shape[0]))
+        tx = next(a for a in reversed(args) if isinstance(a, torch.Tensor))
+        shapes.append((tx.shape[0], args[0].shape[0], bound(*args)))
         return orig(*args)
 
     wrapped.launches = orig.launches
@@ -57,14 +63,19 @@ def record_launches(run, module, name):
 
 
 def main():
-    from chip_smoke import build_problem, build_stokes_problem
+    from chip_smoke import (MH_CASES, bound_ms, build_mh_problem,
+                            build_problem, build_stokes_problem, mh_bound_ms)
     from ipde_tpu_torch.config import require_cuda
     from ipde_tpu_torch.ops import kernels, stokes_kernels
 
+    mh_cases = {case[1]: case for case in MH_CASES}
     ap = argparse.ArgumentParser()
-    ap.add_argument("--pde", choices=("poisson", "stokes"), default="poisson")
-    ap.add_argument("--nb", type=int, default=1200)
-    ap.add_argument("--M", type=int, default=16)
+    ap.add_argument("--pde", choices=("poisson", "stokes", "mh"),
+                    default="poisson")
+    ap.add_argument("--k", type=float, choices=sorted(mh_cases), default=2.0,
+                    help="the modified Helmholtz problem (--pde mh)")
+    ap.add_argument("--nb", type=int)
+    ap.add_argument("--M", type=int)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--trace", help="write the chrome trace here")
     args = ap.parse_args()
@@ -73,18 +84,36 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip())
     kw = dict(tol=1e-12, maxiter=100, restart=30)
-    if args.pde == "poisson":
-        ebdyc, grid, f, bc, solver, bie = build_problem(dev, args.nb, args.M)
-        first = lambda: solver.solve_with_stats(f, **kw)[0]  # noqa: E731
-        second = lambda ue: bie.apply_bc(ue, bc)  # noqa: E731
-        module, wrapper, kname = kernels, "laplace_slp_apply", "laplace_slp"
-    else:
+    if args.pde == "stokes":
+        args.nb, args.M = args.nb or 1200, args.M or 16
         ebdyc, grid, (fu, fv), (bcu, bcv), solver, bie = \
             build_stokes_problem(dev, args.nb, args.M)
         first = lambda: solver.solve_with_stats(fu, fv, **kw)[0]  # noqa: E731
         second = lambda uvp: bie.apply_bc(*uvp, bcu, bcv)  # noqa: E731
         module, wrapper, kname = stokes_kernels, "stokes_slp_apply", \
             "stokes_slp"
+    else:
+        if args.pde == "mh":
+            _, k, nb, M, bie_kind, _ = mh_cases[args.k]
+            args.nb, args.M = args.nb or nb, args.M or M
+            ebdyc, grid, f, bc, solver, bie = build_mh_problem(
+                dev, k, args.nb, args.M, bie_kind)
+            wrapper, kname = "mh_slp_apply", "mh_slp"
+        else:
+            args.nb, args.M = args.nb or 1200, args.M or 16
+            ebdyc, grid, f, bc, solver, bie = build_problem(dev, args.nb,
+                                                            args.M)
+            wrapper, kname = "laplace_slp_apply", "laplace_slp"
+        first = lambda: solver.solve_with_stats(f, **kw)[0]  # noqa: E731
+        second = lambda ue: bie.apply_bc(ue, bc)  # noqa: E731
+        module = kernels
+
+    def bound(sx, *args):
+        """(bound ms, bound_by) of one launch with these arguments."""
+        if kname == "mh_slp":
+            sy, _, tx, ty, k = args
+            return mh_bound_ms(sx, sy, tx, ty, k)[:2]
+        return bound_ms(kname, sx.shape[0], args[-1].shape[0])
 
     def halves():
         torch.cuda.synchronize()
@@ -99,12 +128,13 @@ def main():
     for _ in range(2):
         halves()
     runs = [halves() for _ in range(5)]
-    print(f"# {args.pde} nb={args.nb} M={args.M} grid {grid.shape}: "
+    label = f"mh k={args.k:g}" if args.pde == "mh" else args.pde
+    print(f"# {label} nb={args.nb} M={args.M} grid {grid.shape}: "
           f"solve_with_stats median "
           f"{statistics.median(r[0] for r in runs) * 1e3:.3f} ms, apply_bc "
           f"median {statistics.median(r[1] for r in runs) * 1e3:.3f} ms "
           f"(5 runs, host clock)")
-    shapes = record_launches(lambda: second(first()), module, wrapper)
+    shapes = record_launches(lambda: second(first()), module, wrapper, bound)
 
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -127,9 +157,10 @@ def main():
           f"kernels {busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f}, "
           f"{kname}_kernel {kbusy * 1e3:.3f} ms ({100 * kbusy / busy:.2f}% "
           f"of device time) in {len(mine)} launches (profiler on)")
-    for i, ((T, S), e) in enumerate(zip(shapes, mine)):
+    for i, ((T, S, (bnd, by)), e) in enumerate(zip(shapes, mine)):
         print(f"#   launch {i}: T={T} S={S} blocks={math.ceil(T / 256)} "
-              f"{e.device_time_total * 1e-3:.3f} ms")
+              f"{e.device_time_total * 1e-3:.3f} ms, bound {bnd:.4f} ms "
+              f"({by})")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=20, max_name_column_width=60))
     if args.trace:

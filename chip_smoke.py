@@ -48,6 +48,16 @@ phase prints its seconds):
      launches from its run.
   5. print the kernels' JSON line, the card's name and power limit, then
      the device JSON line last.
+The Stokeslet and Yukawa kernels are also (phases 3 and 4, on lines of their
+own): timed alone at all six launch shapes of their problem beside the bound,
+each launch run twice with bit-equal outputs; compared with the plain version
+on clouds on either side of the threshold below which the launcher splits the
+sources across blocks, and on one whose T and S are multiples of no tile; the
+Yukawa kernel on a box-grid cloud at k = 100 in spatial order (most source
+tiles skipped), row-major and shuffled.  The kernels' device log, exp,
+reciprocal and reciprocal square root (csrc/fp64_math.cuh) are held to
+torch's on 1e6 values of r^2 over [1e-30, 1e3], values within 1e-8 of 1 among
+them.
 
 Each main path runs with every kernel's launch count set to 0 just before
 it and read just after; the comparisons with the plain versions are not
@@ -85,14 +95,18 @@ MH_CASES = (
 )
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
-# FP64 operations per target-source pair (FMA = 2, log = reciprocal = 1):
+# FP64 operations per target-source pair (FMA = 2, log = reciprocal = 1).
+# These counts are frozen at the first version of each kernel, so that the
+# bound reads the same work whatever implements it; the instructions a later
+# version really issues are in PERF.md:
 # laplace: 2 sub, r^2 (mul + FMA), max, log, FMA accumulate
 # stokes: 2 sub, r^2 (mul + FMA), max, reciprocal, log, mul, the force
 #         projection (mul + FMA + mul), two FMA pairs into u and v, add to p
 # laplace_grad: 2 sub, r^2 (mul + FMA), max, reciprocal, mul, two FMAs
 OPS_PER_PAIR = {"laplace_slp": 9, "stokes_slp": 22, "laplace_grad": 12}
-# mh_slp per branch of K0 (csrc/mh_slp.cu): every pair pays 2 sub, r^2 (mul
-# + FMA), max, sqrt, mul by k, the compare z < 2 and the FMA accumulate (11);
+# mh_slp per branch of K0 (the first csrc/mh_slp.cu; frozen likewise): every
+# pair pays 2 sub, r^2 (mul + FMA), max, sqrt, mul by k, the compare z < 2
+# and the FMA accumulate (11);
 # series (z < 2): q (mul), 13 terms of (2 mul, add, FMA), log, 2 FMA (+71);
 # Chebyshev (2 <= z <= 36): the compare z > 36, reciprocal, FMA, add, 25
 # Clenshaw steps of (sub, FMA), the last (sub, FMA), exp, sqrt, 2 mul
@@ -346,6 +360,30 @@ def mh_branch_counts(sx, sy, tx, ty, k):
             "dead": n_dead}
 
 
+def mh_divergence_share(sx, sy, tx, ty, k):
+    """The share of (warp of 32 consecutive targets, source) pairs whose
+    lanes fall in more than one branch of K0, for this target order, counted
+    on the card in chunks of whole warps (a last short warp counts its live
+    lanes only)."""
+    from ipde_tpu_torch.ops import kernels as K
+    S, T = sx.shape[0], tx.shape[0]
+    n_warps = -(-T // 32)
+    pad = n_warps * 32 - T
+    if pad:         # repeat the last target: it adds no branch to its warp
+        tx = torch.cat([tx, tx[-1:].expand(pad)])
+        ty = torch.cat([ty, ty[-1:].expand(pad)])
+    diverged = 0
+    chunk = max(32, (1 << 24) // max(S, 1) // 32 * 32)
+    for i0 in range(0, n_warps * 32, chunk):
+        dx = tx[i0:i0 + chunk, None] - sx[None, :]
+        dy = ty[i0:i0 + chunk, None] - sy[None, :]
+        z = torch.sqrt((dx * dx + dy * dy).clamp_min_(K._MIN_R2)) * k
+        branch = ((z >= K.K0_CHEB_LO).to(torch.int8)
+                  + (z > K.K0_CHEB_HI).to(torch.int8)).reshape(-1, 32, S)
+        diverged += int((branch.amin(1) != branch.amax(1)).sum())
+    return diverged / (n_warps * S)
+
+
 def mh_bound_ms(sx, sy, tx, ty, k):
     """bound_ms of one Yukawa apply, its operations weighted by branch;
     also returns the branch counts."""
@@ -399,6 +437,94 @@ def merged_sigma_g(solver, f):
     finally:
         del solver._apply_merged
     return seen[0]
+
+
+def record_launch_args(run, module, name):
+    """Run ``run`` once with ``module.name`` wrapped to keep the arguments of
+    each call; returns them.  The wrapper counts its launches in the
+    attribute of its module-level name, so the stand-in carries it."""
+    orig = getattr(module, name)
+    calls = []
+
+    def wrapped(*args):
+        calls.append(args)
+        return orig(*args)
+
+    wrapped.launches = orig.launches
+    setattr(module, name, wrapped)
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, orig)
+        orig.launches = wrapped.launches
+    return calls
+
+
+def time_launches(label, kernel, calls, bound_of):
+    """The kernel alone at each recorded launch of one solve: its time
+    beside its bound, and two runs on the same input bit for bit."""
+    total = 0.0
+    for i, args in enumerate(calls):
+        a, b = kernel(*args), kernel(*args)
+        torch.cuda.synchronize()
+        a, b = (o if isinstance(o, tuple) else (o,) for o in (a, b))
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise RuntimeError(f"{label} launch {i}: two runs on one input "
+                               "differ")
+        ms = cuda_ms(lambda: kernel(*args), reps=10)
+        total += ms
+        bnd, by = bound_of(*args)[:2]
+        T = next(t for t in reversed(args)
+                 if isinstance(t, torch.Tensor)).shape[0]
+        print(f"# {label} launch {i}: T={T} S={args[0].shape[0]} kernel "
+              f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}), two runs bit-equal",
+              flush=True)
+    print(f"# {label}: {total:.4f} ms of kernel in the {len(calls)} launches "
+          "of one solve", flush=True)
+
+
+# (T, S) on either side of the threshold below which each launcher splits the
+# sources across blocks (stokes_slp: 528 blocks, T <= 67,584; mh_slp: 2,112
+# blocks, T <= 270,336), and one whose T and S are multiples of no tile
+EDGE_SHAPES = {"stokes_slp": ((67584, 300), (67585, 300), (8193, 1023)),
+               "mh_slp": ((270336, 300), (270337, 300), (8193, 1023))}
+
+
+def grid_cloud(n=256, S=600, seed=3):
+    """An n x n box grid on [-1.5, 1.5]^2 (row-major) around S sources on a
+    star-like curve of radius ~1, and its spacing: (sx, sy, q, tx, ty), h."""
+    rng = np.random.default_rng(seed)
+    th = 2 * np.pi * np.arange(S) / S
+    rad = 1.0 + 0.2 * np.cos(5 * th)
+    g = np.linspace(-1.5, 1.5, n)
+    tx, ty = (a.ravel().copy() for a in np.meshgrid(g, g, indexing="ij"))
+    return (rad * np.cos(th), rad * np.sin(th), rng.standard_normal(S) / S,
+            tx, ty), 3.0 / (n - 1)
+
+
+def device_math_check(dev, SK):
+    """csrc/fp64_math.cuh on the card against torch: log to 4e-16
+    max(1, |log|); reciprocal, reciprocal square root and exp of the negated
+    argument (capped at -700) to 2e-15 relative."""
+    rng = np.random.default_rng(13)
+    a = torch.as_tensor(np.concatenate(
+        [10.0 ** rng.uniform(-30, 3, 900_000),
+         1.0 + rng.uniform(-1e-8, 1e-8, 99_997), [1.0, 1e-30, 1e3]]),
+        device=dev)
+    lg, rc, rs, ex = SK.fp64_math_probe(a)
+    want = torch.log(a)
+    e_log = float(((lg - want).abs() / want.abs().clamp_min(1.0)).max())
+    e_rcp = float((rc * a - 1.0).abs().max())
+    e_rsq = float((rs * rs * a - 1.0).abs().max())
+    want = torch.exp(-a.clamp_max(700.0))
+    e_exp = float(((ex - want).abs() / want).max())
+    print(f"# device math on {a.numel()} values of r^2 in [1e-30, 1e3]: log "
+          f"max |err| / max(1, |log|) {e_log:.3e} (limit 4e-16), reciprocal "
+          f"{e_rcp:.3e}, reciprocal square root {e_rsq:.3e}, exp(-r^2) "
+          f"{e_exp:.3e} (relative, limit 2e-15)", flush=True)
+    if not (e_log <= 4e-16 and max(e_rcp, e_rsq, e_exp) <= 2e-15):
+        raise RuntimeError("the device math disagrees with torch")
 
 
 def poisson_phase(dev, K, counters):
@@ -516,9 +642,15 @@ def stokes_phase(dev, SK, counters):
     t_phase = time.perf_counter()
     as_dev = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     sto = (SK.stokes_slp_apply, SK.stokes_slp_apply_plain, stokes_err)
+    device_math_check(dev, SK)
     errs = [compare(*sto, f"cloud seed {seed}",
                     tuple(map(as_dev, cloud(seed=seed))))[0]
             for seed in (2, 5)]
+    from ipde_tpu_torch.ops.kernels import split_count
+    for T, S in EDGE_SHAPES["stokes_slp"]:
+        errs.append(compare(
+            *sto, f"cloud {split_count('stokes_slp', T, S)} source range(s)",
+            tuple(map(as_dev, cloud(T, S, seed=6))))[0])
 
     t0 = time.perf_counter()
     ebdyc, grid, (fu, fv), (bcu, bcv), solver, bie = build_stokes_problem()
@@ -590,6 +722,10 @@ def stokes_phase(dev, SK, counters):
                            f"{GMRES_TOL}")
     if launches["stokes_slp"] <= 0:
         raise RuntimeError("the Stokes solve launched no stokes_slp kernel")
+    time_launches("stokes_slp", SK.stokes_slp_apply,
+                  record_launch_args(run, SK, "stokes_slp_apply"),
+                  lambda sx, sy, wfx, wfy, tx, ty: bound_ms(
+                      "stokes_slp", sx.shape[0], tx.shape[0]))
     print("# stokes annular GMRES alone (maxiter 100, restart 30): "
           + "; ".join(f"tol {t:.0e}: {i} iterations, true residual {r:.3e}"
                       for t, i, r in gmres_floor(solver, fu, fv)), flush=True)
@@ -613,6 +749,27 @@ def mh_phase(dev, K, counters):
         sx, sy, q, _, tx, ty = map(as_dev, cloud(seed=5))
         errs.append(compare(*mh, f"cloud seed 5, k={k:g}",
                             (sx, sy, q, tx, ty, k))[0])
+    for T, S in EDGE_SHAPES["mh_slp"]:
+        sx, sy, q, _, tx, ty = map(as_dev, cloud(T, S, seed=6))
+        errs.append(compare(
+            *mh, f"cloud {K.split_count('mh_slp', T, S)} source range(s), "
+            "k=20", (sx, sy, q, tx, ty, 20.0))[0])
+    # any target order is right; in spatial order at k = 100 most (warp,
+    # 32-source) tiles are out of reach and skipped
+    (sx, sy, q, tx, ty), h = grid_cloud()
+    sx, sy, q, tx, ty = map(as_dev, (sx, sy, q, tx, ty))
+    orders = {"row-major": torch.arange(tx.shape[0], device=dev),
+              "spatial order": K.spatial_order(tx, ty, cell=h),
+              "shuffled": as_dev(np.random.default_rng(4).permutation(
+                  tx.shape[0]))}
+    for label, perm in orders.items():
+        args = (sx, sy, q, tx[perm].contiguous(), ty[perm].contiguous(), 100.0)
+        errs.append(compare(*mh, f"grid cloud, k=100, {label}", args,
+                            timed=True, plain_reps=1)[0])
+        print(f"#   {label}: pairs by branch "
+              f"{mh_branch_counts(*args[:2], *args[3:])}, warp-source pairs "
+              "in more than one branch "
+              f"{mh_divergence_share(*args[:2], *args[3:]):.4f}", flush=True)
     entry = None
     total_launches = 0
     for name, k, nb, M, bie_kind, limit in MH_CASES:
@@ -642,7 +799,9 @@ def mh_phase(dev, K, counters):
         errs.append(e)
         bnd, by, counts = mh_bound_ms(*merged[:2], *merged[3:])
         print(f"# mh_slp_apply {name} merged: pairs by branch {counts}, "
-              f"bound {bnd:.4f} ms ({by})", flush=True)
+              f"bound {bnd:.4f} ms ({by}), warp-source pairs in more than "
+              f"one branch {mh_divergence_share(*merged[:2], *merged[3:]):.4f}",
+              flush=True)
         src = bie.src_list[0].dev(dev)
         n = src["x"].shape[0]
         errs.append(compare(*mh, f"{name} BIE source -> physical grid",
@@ -677,6 +836,10 @@ def mh_phase(dev, K, counters):
                                f"> {GMRES_TOL}")
         if launches["mh_slp"] <= 0:
             raise RuntimeError(f"the {name} solve launched no mh_slp kernel")
+        time_launches(f"mh_slp {name}", K.mh_slp_apply,
+                      record_launch_args(run, K, "mh_slp_apply"),
+                      lambda sx, sy, w, tx, ty, k: mh_bound_ms(sx, sy, tx, ty,
+                                                               k))
         total_launches += launches["mh_slp"]
         if entry is None:      # the kernels line times the k = 2 merged apply
             entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
@@ -713,7 +876,8 @@ def main():
         for lib in [pool.submit(fn) for fn in loaders]:
             lib.result()
     print(f"# build laplace_slp.cu + laplace_grad.cu + mh_slp.cu + "
-          f"stokes_slp.cu: {time.perf_counter() - t0:.2f} s", flush=True)
+          f"stokes_slp.cu (the last two with fp64_math.cuh): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     counters = {"laplace_slp": K.laplace_slp_apply,
                 "laplace_grad": K.laplace_slp_grad_apply,
                 "mh_slp": K.mh_slp_apply,

@@ -33,7 +33,8 @@ import torch
 from ipde_tpu_torch.geometry.curve import BoundaryCurve
 from ipde_tpu_torch.ops.kernels import (_MIN_R2, _PLAIN_CHUNK_ELEMS,
                                         _launch, build_library,
-                                        check_f64_1d)
+                                        check_f64_1d, device_table,
+                                        split_scratch)
 from ipde_tpu_torch.ops.singular import log_quad_circulant
 
 
@@ -164,8 +165,30 @@ def load_library() -> ctypes._CFuncPtr:
     """The Stokeslet kernel's launcher, built at first use."""
     P, I64 = ctypes.c_void_p, ctypes.c_int64
     return build_library("stokes_slp", "stokes_slp_apply_f64",
-                         [P, P, P, P, I64, P, P, P, P, P, I64, ctypes.c_int,
-                          P])
+                         [P, P, P, P, I64, P, P, P, P, P, I64, P, P, I64,
+                          ctypes.c_int, P])
+
+
+def fp64_math_probe(a):
+    """(log a, 1 / a, 1 / sqrt(a), exp(-min(a, 700))) of a 1-D float64 CUDA
+    tensor by the kernels' device math (``csrc/fp64_math.cuh``: ``log_pos``,
+    ``rcp_pos``, ``rsqrt_pos``, ``exp_neg``), through a probe kernel in the
+    Stokeslet library: what holds that math to torch's on the card."""
+    check_f64_1d({"a": a}, {})
+    if a.device.type != "cuda":
+        raise ValueError(f"fp64_math_probe: needs a CUDA tensor, got "
+                         f"{a.device}")
+    P = ctypes.c_void_p
+    fn = build_library("stokes_slp", "fp64_math_probe_f64",
+                       [P, P, ctypes.c_int64, P, P, ctypes.c_int, P])
+    n = a.shape[0]
+    out = torch.empty(4 * n, dtype=torch.float64, device=a.device)
+    if n:
+        _launch("fp64_math_probe", fn,
+                (a.data_ptr(), out.data_ptr(), n,
+                 device_table("log_table", a.device).data_ptr(),
+                 device_table("exp_table", a.device).data_ptr()), a.device)
+    return out[:n], out[n:2 * n], out[2 * n:3 * n], out[3 * n:]
 
 
 def stokes_slp_apply_plain(sx, sy, wfx, wfy, tx, ty):
@@ -212,10 +235,13 @@ def stokes_slp_apply(sx, sy, wfx, wfy, tx, ty):
         return u, v, p
     if S == 0:
         return u.zero_(), v.zero_(), p.zero_()
-    _launch("stokes_slp", load_library(),
+    fn = load_library()
+    scratch = split_scratch("stokes_slp", T, S, 3, dev)
+    _launch("stokes_slp", fn,
             (sx.data_ptr(), sy.data_ptr(), wfx.data_ptr(), wfy.data_ptr(), S,
              tx.data_ptr(), ty.data_ptr(), u.data_ptr(), v.data_ptr(),
-             p.data_ptr(), T), dev)
+             p.data_ptr(), T, device_table("log_table", dev).data_ptr(),
+             scratch.data_ptr(), scratch.numel()), dev)
     stokes_slp_apply.launches += 1
     return u, v, p
 

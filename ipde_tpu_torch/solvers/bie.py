@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
+from ipde_tpu_torch.ops import kernels
 from ipde_tpu_torch.ops import singular as sq
 from ipde_tpu_torch.ops import stokes_kernels as sk
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
@@ -51,9 +52,16 @@ class _ScalarBIE:
              for src, ej in zip(self.src_list, ebdyc)]
             for e in ebdyc]
         phys = ebdyc.phys
-        self.phys_flat = torch.as_tensor(np.flatnonzero(phys), device=dev)
-        self.phys_x = torch.as_tensor(ebdyc.grid.xg[phys], device=dev)
-        self.phys_y = torch.as_tensor(ebdyc.grid.yg[phys], device=dev)
+        phys_x = torch.as_tensor(ebdyc.grid.xg[phys], device=dev)
+        phys_y = torch.as_tensor(ebdyc.grid.yg[phys], device=dev)
+        # in spatial order (compact warps for the Yukawa kernel), with the
+        # flat indices their values are scattered to in the same order
+        order = kernels.spatial_order(phys_x, phys_y,
+                                      cell=min(ebdyc.grid.xh, ebdyc.grid.yh))
+        self.phys_flat = torch.as_tensor(np.flatnonzero(phys),
+                                         device=dev)[order]
+        self.phys_x = phys_x[order]
+        self.phys_y = phys_y[order]
 
     def _add_fields(self, ue: EmbeddedFunction, sigmas) -> EmbeddedFunction:
         """ue plus the field of each effective density ``sigmas[j]`` on

@@ -163,9 +163,15 @@ class ScalarSolver:
         self.grid_src_w = f64(np.concatenate(
             [h.grid_source.weights for h in self.helpers]))
         self._symbol = f64(self._grid_symbol())
-        self._dense_tx = torch.cat([ebdyc.pna_x_dev,
+        # the grid targets of the merged apply in spatial order (compact
+        # warps for the Yukawa kernel), with the flat indices their values
+        # are scattered to in the same order; the interface points follow
+        order = kernels.spatial_order(ebdyc.pna_x_dev, ebdyc.pna_y_dev,
+                                      cell=min(ebdyc.grid.xh, ebdyc.grid.yh))
+        self._pna_flat = ebdyc.pna_flat_dev[order]
+        self._dense_tx = torch.cat([ebdyc.pna_x_dev[order],
                                     ebdyc.all_interface_x_dev])
-        self._dense_ty = torch.cat([ebdyc.pna_y_dev,
+        self._dense_ty = torch.cat([ebdyc.pna_y_dev[order],
                                     ebdyc.all_interface_y_dev])
         self.iteration_counts = []
 
@@ -254,7 +260,7 @@ class ScalarSolver:
         sigma_g = torch.cat(sig_gs)
         out = self._apply_merged(sigma_g, self._dense_tx, self._dense_ty)
         n_pna = ebdyc.pna_x.size
-        uc = uc.reshape(-1).index_add(0, ebdyc.pna_flat_dev, out[:n_pna])\
+        uc = uc.reshape(-1).index_add(0, self._pna_flat, out[:n_pna])\
             .reshape(ebdyc.grid.shape)
         bus = ebdyc.v2l(out[n_pna:])
         # per-boundary radial corrections

@@ -103,6 +103,113 @@ def test_module_import_builds_nothing():
                           cwd=Path(__file__).resolve().parents[1]).returncode == 0
 
 
+# ---------------------------------------------------------------------------
+# the kernels' FP64 log (its numpy/torch twin) and the build key
+# ---------------------------------------------------------------------------
+
+def _log_inputs(which):
+    rng = np.random.default_rng(12)
+    if which == "wide":
+        return 10.0 ** rng.uniform(-30, 3, 400_000)
+    if which == "near_one":
+        return np.concatenate([1.0 + rng.uniform(-1e-8, 1e-8, 100_000),
+                               1.0 + rng.uniform(-2e-2, 2e-2, 100_000),
+                               np.nextafter(1.0, [0.0, 2.0]), [1.0]])
+    # every table interval's two ends, in several binades, and the extremes
+    step = 1 << (20 - kernels.LOG_TABLE_BITS)
+    hi = np.arange(1 << kernels.LOG_TABLE_BITS, dtype=np.int64) * step \
+        + kernels._LOG_SQRT_HALF_HI
+    lo = (hi << 32).view(np.float64)
+    up = (((hi + step) << 32) - 1).view(np.float64)
+    m = np.concatenate([lo, up])
+    return np.concatenate([m * 2.0 ** e for e in (-100, -1, 0, 1, 9)]
+                          + [[1e-30, 1e3, 2.3e-308, 1.7e308]])
+
+
+@pytest.mark.parametrize("which", ["wide", "near_one", "edges"])
+def test_fast_log_matches_numpy(which):
+    """The twin of csrc/fp64_math.cuh log_pos (same table, polynomial and
+    split log 2) against numpy's log in extended precision: absolute error
+    at most 4e-16 max(1, |log a|)."""
+    a = _log_inputs(which)
+    want = np.log(a.astype(np.longdouble))
+    got = kernels.fast_log(torch.as_tensor(a)).numpy().astype(np.longdouble)
+    err = np.abs(got - want) / np.maximum(1.0, np.abs(want))
+    assert float(err.max()) <= 4e-16, float(err.max())
+    if which == "near_one":
+        assert kernels.fast_log(torch.ones(1, dtype=torch.float64)).item() == 0.0
+
+
+def test_log_table():
+    full = kernels.log_table()
+    n = 1 << kernels.LOG_TABLE_BITS
+    assert full.shape == (n + 5, 2) and not full.flags.writeable
+    t = full[:n]
+    assert np.array_equal(t[:, 1], -np.log(t[:, 0]))
+    # c_i has at most 20 bits, so m_hi c_i and m_lo c_i are exact in the
+    # twin and fma(m, c_i, -1) rounds once in the kernel
+    mant = np.frexp(t[:, 0])[0] * 2.0 ** 20
+    assert np.array_equal(mant, np.round(mant))
+    assert (t[:, 0] == 1.0).sum() == 1 and (np.diff(t[:, 0]) < 0).all()
+    # the constants, in the order of csrc/fp64_math.cuh LogConsts
+    ln2_hi, ln2_lo, *q, min_r2, pad = full[n:].ravel()
+    assert ln2_hi + ln2_lo == np.log(2.0) and abs(ln2_lo) < 2.0 ** -31
+    assert ln2_hi.hex().endswith("00000p-1")      # e * ln2_hi is exact
+    assert q == [(-1.0) ** (j + 1) / j for j in range(2, 8)]
+    assert (min_r2, pad) == (kernels._MIN_R2, 0.0)
+
+
+@pytest.mark.parametrize("which", ["wide", "k0_range", "edges"])
+def test_fast_exp_neg_matches_numpy(which):
+    """The twin of csrc/fp64_math.cuh exp_neg (same table, reduction and
+    polynomial) against numpy's exp in extended precision: relative error
+    at most 4e-16 on [-700, 0]."""
+    rng = np.random.default_rng(14)
+    if which == "wide":
+        t = -rng.uniform(0, 700, 400_000)
+    elif which == "k0_range":
+        t = -rng.uniform(2, 36, 400_000)
+    else:       # multiples of log(2)/64, where the reduction rounds either way
+        t = -np.arange(0, 64 * 1000) * (np.log(2.0) / 64)
+        t = np.concatenate([t, np.nextafter(t, 0), np.nextafter(t, -800),
+                            [-700.0, -0.0, -1e-300]])
+    want = np.exp(t.astype(np.longdouble))
+    got = kernels.fast_exp_neg(torch.as_tensor(t)).numpy()
+    err = np.abs(got.astype(np.longdouble) - want) / want
+    assert float(err.max()) <= 4e-16, float(err.max())
+    table = kernels.exp_table()
+    n = kernels.EXP_TABLE_ENTRIES
+    assert table.shape == (n + 8,) and not table.flags.writeable
+    assert table[0] == 1.0 and np.all(np.diff(table[:n]) > 0) and table[n - 1] < 2
+    assert table[n + 1] + table[n + 2] == np.log(2.0) / n
+
+
+def test_library_key_covers_headers(tmp_path, monkeypatch):
+    """A library is keyed on its source AND the headers of csrc/: an edited
+    header builds anew and never loads a stale library."""
+    from ipde_tpu_torch.utils import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "thing.cu").write_text("// source\n")
+    (csrc / "shared.cuh").write_text("// header v1\n")
+    fake = tmp_path / "fake_nvcc"
+    fake.write_text("#!/bin/sh\nfor a; do out=$a; done\necho built > \"$out\"\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "_CSRC", csrc)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "out")
+    first = kernels.library_path("thing")
+    assert first.exists() and kernels.library_path("thing") == first
+    (csrc / "shared.cuh").write_text("// header v2\n")
+    second = kernels.library_path("thing")
+    assert second != first and second.exists()
+    (csrc / "thing.cu").write_text("// source, edited\n")
+    assert kernels.library_path("thing") not in (first, second)
+    (csrc / "thing.cu").write_text("// source\n")
+    (csrc / "shared.cuh").write_text("// header v1\n")
+    assert kernels.library_path("thing") == first
+
+
 def _cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")

@@ -131,14 +131,112 @@ def test_k0_split_matches_scipy():
     assert (err / bound).max() < 1.0, (err / bound).max()
 
 
+def _port_fit(z):
+    """f(z) = K0(z) e^z sqrt(z) by the port's piecewise fits."""
+    rows = kernels.k0_cheb_coeffs()
+    br = kernels.K0_CHEB_BREAKS
+    i = np.clip(np.searchsorted(br, z, side="left") - 1, 0, len(rows) - 1)
+    x = rows[i, 0] / z + rows[i, 1]
+    f = np.zeros_like(z)
+    for j in range(kernels.K0_CHEB_DEG - 1, -1, -1):
+        f = f * x + rows[i, 2 + j]
+    return f
+
+
 def test_k0_cheb_coeffs_match_pallas_fit():
-    coeffs, lo, hi, _, _ = pallas_ds._k0_cheb_ds()
-    want = np.array([h + l for h, l in coeffs])   # the ds pairs, summed
+    # the port fits three sub-intervals where the Pallas kernel fits one:
+    # the two are held together as functions, on the Pallas kernel's range
+    coeffs, lo, hi, ulo, uhi = pallas_ds._k0_cheb_ds()
+    want_c = np.array([h + l for h, l in coeffs])   # the ds pairs, summed
     got = kernels.k0_cheb_coeffs()
-    assert (lo, hi) == (kernels.K0_CHEB_LO, kernels.K0_CHEB_HI)
-    assert got.shape == want.shape == (kernels.K0_CHEB_DEG,)
+    br = kernels.K0_CHEB_BREAKS
+    assert (lo, hi) == (kernels.K0_CHEB_LO, kernels.K0_CHEB_HI) \
+        == (br[0], br[-1])
+    assert got.shape == (len(br) - 1, 2 + kernels.K0_CHEB_DEG)
+    z = np.concatenate([np.linspace(lo, hi, 4001), np.asarray(br)])
+    x = (2.0 / z - (uhi + ulo)) / (uhi - ulo)
+    want = np.polynomial.chebyshev.chebval(x, want_c)
     # a ds pair holds ~48 bits: 2^-48 ~ 3.6e-15 relative
-    assert (np.abs(got - want) / np.abs(want)).max() < 1e-14
+    assert (np.abs(_port_fit(z) - want) / want).max() < 1e-14
+
+
+@pytest.mark.parametrize("which", ["series", "fits", "layout"])
+def test_k0_fit_residuals_and_layout(which):
+    """The host fits the CUDA kernel is handed: each stays within 3e-15 of
+    scipy (relative; the series against I0 and K0 themselves), and k0_fit
+    packs them in the order of the kernel's K0Fit."""
+    from scipy.special import i0 as scipy_i0
+    from scipy.special import k0e as scipy_k0e
+    if which == "series":
+        i0_c, reg_c = kernels.k0_series_coeffs()
+        assert i0_c.shape == reg_c.shape == (kernels.K0_SERIES_DEG,)
+        z = np.linspace(1e-6, 2.0, 3001)
+        q = z * z / 4
+        hi0 = np.polyval(i0_c[::-1], q)
+        assert (np.abs(hi0 - scipy_i0(z)) / scipy_i0(z)).max() < 3e-15
+        k0 = np.polyval(reg_c[::-1], q) - (0.5 * np.log(q) + 0.5772156649015329) * hi0
+        # R - (...) I0 cancels ~12-fold at z = 2: absolute, as the series is used
+        assert np.abs(k0 - scipy_k0(z)).max() < 2e-14
+    elif which == "fits":
+        z = np.linspace(2.0, 36.0, 20001)
+        f = scipy_k0e(z) * np.sqrt(z)
+        assert (np.abs(_port_fit(z) - f) / f).max() < 3e-15
+    else:
+        fit = kernels.k0_fit()
+        n_int = len(kernels.K0_CHEB_BREAKS) - 1
+        assert fit.shape == (n_int + 1 + 2 * kernels.K0_SERIES_DEG
+                             + n_int * (2 + kernels.K0_CHEB_DEG),)
+        assert np.array_equal(fit[:n_int + 1],
+                              np.square(kernels.K0_CHEB_BREAKS) / 4)
+        assert np.array_equal(fit[n_int + 1:n_int + 1 + 2 * kernels.K0_SERIES_DEG],
+                              kernels.k0_series_coeffs().ravel())
+        assert np.array_equal(fit[-n_int * (2 + kernels.K0_CHEB_DEG):],
+                              kernels.k0_cheb_coeffs().ravel())
+
+
+def test_k0_split_picks_branch_from_q():
+    # at the thresholds themselves, and one ulp to either side
+    br = np.asarray(kernels.K0_CHEB_BREAKS)
+    z = np.concatenate([br, np.nextafter(br, 0), np.nextafter(br, 100)])
+    got = _np(kernels.k0_split(torch.as_tensor(z), torch.as_tensor(z * z / 4)))
+    want = np.where(z * z / 4 > br[-1] ** 2 / 4, 0.0, scipy_k0(z))
+    assert np.abs(got - want).max() < 2e-14
+
+
+@pytest.mark.parametrize("T,cell", [(1, None), (257, None), (5000, None),
+                                    (4096, 0.125)])
+def test_spatial_order_is_a_permutation(T, cell):
+    rng = np.random.default_rng(T)
+    if cell is None:
+        tx, ty = rng.uniform(-1, 2, (2, T))
+    else:       # a 64 x 64 box grid of that spacing, row-major
+        tx, ty = (a.ravel() * cell for a in np.meshgrid(
+            np.arange(64), np.arange(64), indexing="ij"))
+    perm = _np(kernels.spatial_order(torch.as_tensor(tx), torch.as_tensor(ty),
+                                     cell))
+    assert perm.dtype == np.int64
+    assert np.array_equal(np.sort(perm), np.arange(T))
+    if cell is not None:
+        # a warp's 32 targets are an 8 x 4 patch, a block's 256 are 16 x 16
+        for n, (ex, ey) in ((32, (7, 3)), (256, (15, 15))):
+            px = tx[perm].reshape(-1, n)
+            py = ty[perm].reshape(-1, n)
+            assert np.allclose(np.ptp(px, axis=1), ex * cell)
+            assert np.allclose(np.ptp(py, axis=1), ey * cell)
+    assert kernels.spatial_order(torch.empty(0, dtype=torch.float64),
+                                 torch.empty(0, dtype=torch.float64)).shape == (0,)
+
+
+@pytest.mark.parametrize("k", [2.0, 100.0])
+def test_plain_apply_unchanged_under_spatial_order(k):
+    sx, sy, q, tx, ty = map(torch.as_tensor, _cloud(T=900, S=200, seed=8))
+    perm = kernels.spatial_order(tx, ty)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel())
+    want = kernels.mh_slp_apply(sx, sy, q, tx, ty, k)
+    got = kernels.mh_slp_apply(sx, sy, q, tx[perm].contiguous(),
+                               ty[perm].contiguous(), k)[inv]
+    assert float((got - want).abs().max()) <= 1e-15 * float(want.abs().max())
 
 
 @pytest.mark.parametrize("k", [1.0, 20.0])
@@ -438,6 +536,84 @@ def test_cuda_kernels_match_plain(T, S, seed, k):
     scale = (w[0].abs() + w[1].abs()).clamp_min(1.0)
     for a, b in zip(g, w):
         assert float(((a - b).abs() / scale).max()) <= 1e-12
+
+
+def _grid_cloud(n, k, seed):
+    """An n x n box grid in [-1.5, 1.5]^2 (row-major) around a 600-source
+    star-like curve of radius ~1: at k = 100 most (warp, 32-source) tiles
+    are out of reach."""
+    rng = np.random.default_rng(seed)
+    S = 600
+    th = 2 * np.pi * np.arange(S) / S
+    rad = 1.0 + 0.2 * np.cos(5 * th)
+    g = np.linspace(-1.5, 1.5, n)
+    tx, ty = (a.ravel() for a in np.meshgrid(g, g, indexing="ij"))
+    return (rad * np.cos(th), rad * np.sin(th), rng.standard_normal(S) / S,
+            tx.copy(), ty.copy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,S,seed,k", [(5400, 900, 5, 100.0),
+                                        (8000, 2400, 6, 2.0),
+                                        (270336, 300, 7, 20.0),
+                                        (270337, 300, 7, 20.0),
+                                        (8193, 1023, 8, 2.0),
+                                        (33, 31, 9, 1.0)])
+def test_cuda_kernel_split_and_ragged_shapes(T, S, seed, k):
+    """Launches on either side of the split threshold (sources split across
+    blocks up to 270,336 targets) and with T and S that are multiples of no
+    tile: within 1e-12 of the plain version, and two runs bit-equal."""
+    dev = _cuda()
+    args = [torch.as_tensor(a, device=dev)
+            for a in _cloud(T=T, S=S, seed=seed)]
+    if S >= 64:
+        assert (kernels.split_count("mh_slp", T, S) > 1) == (T <= 270336)
+    got = kernels.mh_slp_apply(*args, k)
+    again = kernels.mh_slp_apply(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    want = kernels.mh_slp_apply_plain(*args, k)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,order", [(100.0, "row_major"), (100.0, "sorted"),
+                                     (100.0, "shuffled"), (2.0, "sorted"),
+                                     (2.0, "shuffled")])
+def test_cuda_kernel_any_target_order_and_skip(k, order):
+    """The kernel is right for any target order: spatially sorted (where at
+    k = 100 most source tiles are skipped), row-major and shuffled."""
+    dev = _cuda()
+    sx, sy, q, tx, ty = (torch.as_tensor(a, device=dev)
+                         for a in _grid_cloud(192, k, 3))
+    if order == "sorted":
+        perm = kernels.spatial_order(tx, ty, cell=3.0 / 191)
+    elif order == "shuffled":
+        perm = torch.as_tensor(np.random.default_rng(4).permutation(
+            tx.shape[0]), device=dev)
+    else:
+        perm = torch.arange(tx.shape[0], device=dev)
+    tx, ty = tx[perm].contiguous(), ty[perm].contiguous()
+    got = kernels.mh_slp_apply(sx, sy, q, tx, ty, k)
+    want = kernels.mh_slp_apply_plain(sx, sy, q, tx, ty, k)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-12
+    # zero where the plain version is zero: a skipped pair adds nothing
+    assert torch.equal(got == 0, want == 0)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_carries_nan():
+    dev = _cuda()
+    sx, sy, q, tx, ty = (torch.as_tensor(a, device=dev)
+                         for a in _grid_cloud(64, 100.0, 3))
+    perm = kernels.spatial_order(tx, ty)
+    tx, ty = tx[perm].contiguous(), ty[perm].contiguous()
+    tx[1234] = float("nan")
+    out = kernels.mh_slp_apply(sx, sy, q, tx, ty, 100.0)
+    assert torch.isnan(out).nonzero().flatten().tolist() == [1234]
+    tx[1234] = 0.0
+    q[7] = float("nan")      # 0 * NaN in the plain version: every target
+    assert torch.isnan(kernels.mh_slp_apply(sx, sy, q, tx, ty, 100.0)).all()
 
 
 @pytest.mark.gpu

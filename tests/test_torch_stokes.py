@@ -180,6 +180,19 @@ def test_apply_clamps_coincident_pairs_and_checks():
             sk.stokes_slp_apply(*bad)
 
 
+def test_plain_apply_unchanged_under_spatial_order():
+    from ipde_tpu_torch.ops.kernels import spatial_order
+    sx, sy, fx, fy, tx, ty = map(torch.as_tensor, _cloud(T=900, S=200, seed=8))
+    perm = spatial_order(tx, ty)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.numel())
+    want = sk.stokes_slp_apply(sx, sy, fx, fy, tx, ty)
+    got = sk.stokes_slp_apply(sx, sy, fx, fy, tx[perm].contiguous(),
+                              ty[perm].contiguous())
+    for g, w in zip(got, want):
+        assert float((g[inv] - w).abs().max()) <= 1e-14 * float(w.abs().max())
+
+
 def test_host_forms_bit_equal():
     jc, tc = jstar(96, a=0.15, f=5), star(96, a=0.15, f=5)
     jsrc, tsrc = jc.complex_offset(0.05), tc.complex_offset(0.05)
@@ -536,6 +549,65 @@ def test_cuda_kernel_matches_plain(T, S, seed):
     assert sk.stokes_slp_apply.launches == before + 1
     want = [a.cpu().numpy() for a in sk.stokes_slp_apply_plain(*args)]
     assert _uvp_err(got, want) <= 1e-12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,S,seed", [(3600, 1800, 2), (13200, 3600, 3),
+                                      (67584, 300, 4), (67585, 300, 4),
+                                      (8193, 1023, 5), (33, 31, 6)])
+def test_cuda_kernel_split_and_ragged_shapes(T, S, seed):
+    """Launches on either side of the split threshold (sources split across
+    blocks below ~67,584 targets) and with T and S that are multiples of no
+    tile: within 1e-12 of the plain version, and two runs bit-equal."""
+    from ipde_tpu_torch.ops.kernels import split_count
+    dev = _cuda()
+    args = [torch.as_tensor(a, device=dev)
+            for a in _cloud(T=T, S=S, seed=seed)]
+    if S >= 64:
+        assert (split_count("stokes_slp", T, S) > 1) == (T <= 67584)
+    got = sk.stokes_slp_apply(*args)
+    again = sk.stokes_slp_apply(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = [a.cpu().numpy() for a in sk.stokes_slp_apply_plain(*args)]
+    assert _uvp_err(got, want) <= 1e-12
+
+
+@pytest.mark.gpu
+def test_cuda_device_math_matches_library():
+    """csrc/fp64_math.cuh on the card: log to 4e-16 max(1, |log|), the
+    reciprocal, the reciprocal square root and exp(-a) to a few ulp; NaN
+    and infinity come through the log as the library gives them."""
+    dev = _cuda()
+    rng = np.random.default_rng(13)
+    a = np.concatenate([10.0 ** rng.uniform(-30, 3, 900_000),
+                        1.0 + rng.uniform(-1e-8, 1e-8, 100_000), [1.0]])
+    lg, rc, rs, ex = (o.cpu().numpy() for o in
+                      sk.fp64_math_probe(torch.as_tensor(a, device=dev)))
+    want = np.log(a.astype(np.longdouble))
+    err = np.abs(lg.astype(np.longdouble) - want) / np.maximum(1, np.abs(want))
+    assert float(err.max()) <= 4e-16
+    assert (np.abs(rc * a - 1.0)).max() <= 4 * 2.0 ** -53
+    assert (np.abs(rs * rs * a - 1.0)).max() <= 16 * 2.0 ** -53
+    want = np.exp(-np.minimum(a, 700.0).astype(np.longdouble))
+    assert float((np.abs(ex - want) / want).max()) <= 4e-16
+    odd = torch.tensor([float("nan"), float("inf"), 0.0, -1.0, 5e-324],
+                       dtype=torch.float64, device=dev)
+    lg = sk.fp64_math_probe(odd)[0].cpu()
+    assert torch.equal(torch.isnan(lg), torch.isnan(odd.cpu().log()))
+    assert torch.equal(lg[[1, 2, 4]], odd.cpu().log()[[1, 2, 4]])
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_carries_nan():
+    dev = _cuda()
+    args = [torch.as_tensor(a, device=dev)
+            for a in _cloud(T=600, S=300, seed=2)]
+    args[4][17] = float("nan")
+    u, v, p = sk.stokes_slp_apply(*args)
+    for o in (u, v, p):
+        bad = torch.isnan(o).nonzero().flatten().tolist()
+        assert bad == [17]
 
 
 @pytest.mark.gpu

@@ -14,7 +14,7 @@ M=24), warms it up, then:
   * times the two halves of a solve (solve_with_stats and apply_bc) on the
     host clock around torch.cuda.synchronize;
   * records the (targets, sources) of every dense-kernel launch of one
-    solve, and its bound (chip_smoke.bound_ms; for the Yukawa kernel
+    solve (chip_smoke.record_launch_args), and its bound (chip_smoke.bound_ms; for the Yukawa kernel
     chip_smoke.mh_bound_ms, from the pairs of that launch in each branch);
   * traces ``--reps`` solves with torch.profiler and prints the device time
     by kernel, the device busy time, the idle share of the traced window,
@@ -38,33 +38,27 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
-def record_launches(run, module, name, bound):
-    """Run ``run`` once with ``module.name`` wrapped to record the
-    (targets, sources, bound(*args)) of each call.  The wrapper counts its
-    launches in the attribute of its module-level name, so the stand-in
-    carries it."""
-    orig = getattr(module, name)
-    shapes = []
-
-    def wrapped(*args):
-        tx = next(a for a in reversed(args) if isinstance(a, torch.Tensor))
-        shapes.append((tx.shape[0], args[0].shape[0], bound(*args)))
-        return orig(*args)
-
-    wrapped.launches = orig.launches
-    setattr(module, name, wrapped)
-    try:
-        run()
-        torch.cuda.synchronize()
-    finally:
-        setattr(module, name, orig)
-        orig.launches = wrapped.launches
-    return shapes
+def launch_times(events, kname):
+    """Device microseconds of each apply of the kernel ``kname`` among the
+    device events, in time order.  An apply with few targets is two
+    kernels, the sum over a range of sources and the one that combines the
+    ranges (``combine_splits_kernel``): both count towards the apply, so a
+    launch's time stays comparable with a one-kernel version's.  (The
+    spatial order of the targets costs no kernel of its own: the solvers
+    order the indices they scatter to instead of gathering the outputs.)"""
+    times = []
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if f"{kname}_kernel" in e.name:
+            times.append(e.device_time_total)
+        elif "combine_splits_kernel" in e.name and times:
+            times[-1] += e.device_time_total
+    return times
 
 
 def main():
     from chip_smoke import (MH_CASES, bound_ms, build_mh_problem,
-                            build_problem, build_stokes_problem, mh_bound_ms)
+                            build_problem, build_stokes_problem, mh_bound_ms,
+                            record_launch_args)
     from ipde_tpu_torch.config import require_cuda
     from ipde_tpu_torch.ops import kernels, stokes_kernels
 
@@ -134,7 +128,11 @@ def main():
           f"{statistics.median(r[0] for r in runs) * 1e3:.3f} ms, apply_bc "
           f"median {statistics.median(r[1] for r in runs) * 1e3:.3f} ms "
           f"(5 runs, host clock)")
-    shapes = record_launches(lambda: second(first()), module, wrapper, bound)
+    shapes = [(next(a for a in reversed(call)
+                    if isinstance(a, torch.Tensor)).shape[0],
+               call[0].shape[0], bound(*call))
+              for call in record_launch_args(lambda: second(first()), module,
+                                             wrapper)]
 
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -150,16 +148,16 @@ def main():
     busy = sum(e.device_time_total for e in events) * 1e-6   # us -> s
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    mine = sorted((e for e in events if f"{kname}_kernel" in e.name),
-                  key=lambda e: e.time_range.start)
-    kbusy = sum(e.device_time_total for e in mine) * 1e-6
+    mine = launch_times(events, kname)
+    kbusy = sum(mine) * 1e-6
     print(f"# traced {args.reps} solves: wall {wall * 1e3:.3f} ms, device "
           f"kernels {busy * 1e3:.3f} ms, idle share {1 - busy / wall:.3f}, "
           f"{kname}_kernel {kbusy * 1e3:.3f} ms ({100 * kbusy / busy:.2f}% "
-          f"of device time) in {len(mine)} launches (profiler on)")
-    for i, ((T, S, (bnd, by)), e) in enumerate(zip(shapes, mine)):
-        print(f"#   launch {i}: T={T} S={S} blocks={math.ceil(T / 256)} "
-              f"{e.device_time_total * 1e-3:.3f} ms, bound {bnd:.4f} ms "
+          f"of device time) in {len(mine)} launches (profiler on; a launch "
+          f"that splits its sources counts its combining kernel)")
+    for i, ((T, S, (bnd, by)), us) in enumerate(zip(shapes, mine)):
+        print(f"#   launch {i}: T={T} S={S} target tiles="
+              f"{math.ceil(T / 256)} {us * 1e-3:.3f} ms, bound {bnd:.4f} ms "
               f"({by})")
     print(prof.key_averages().table(sort_by="self_device_time_total",
                                     row_limit=20, max_name_column_width=60))

@@ -19,7 +19,12 @@ phase prints its seconds):
      201,824 dof), through PoissonSolver.solve_with_stats +
      DirichletBIE.apply_bc; require max error < 2.5e-11 against the
      analytic solution, an annular GMRES residual <= tol, and laplace_slp
-     launches from that run.
+     launches from that run.  Both Laplace kernels are also held to their
+     plain versions at the BIE-grid and one radial-group shape and on the
+     edge clouds below, and timed alone (the single layer at the six
+     recorded launches of one solve, the gradient at the merged and one
+     radial-group shape) beside the bound, each launch run twice with
+     bit-equal outputs.
   3. Stokes: compare the Stokeslet kernel with its plain torch version on
      the clouds and at the shapes of the Stokes solve (u, v relative to
      max|u|, max|v|; p relative to max(1, |p|) per row; <= 1e-12); run the
@@ -50,9 +55,10 @@ phase prints its seconds):
      the device JSON line last.
 The Stokeslet and Yukawa kernels are also (phases 3 and 4, on lines of their
 own): timed alone at all six launch shapes of their problem beside the bound,
-each launch run twice with bit-equal outputs; compared with the plain version
-on clouds on either side of the threshold below which the launcher splits the
-sources across blocks, and on one whose T and S are multiples of no tile; the
+each launch run twice with bit-equal outputs.  Every kernel is compared with
+its plain version on clouds on either side of the threshold below which its
+launcher splits the sources across blocks, and on one whose T and S are
+multiples of no tile; the
 Yukawa kernel on a box-grid cloud at k = 100 in spatial order (most source
 tiles skipped), row-major and shuffled.  The kernels' device log, exp,
 reciprocal and reciprocal square root (csrc/fp64_math.cuh) are held to
@@ -461,9 +467,10 @@ def record_launch_args(run, module, name):
     return calls
 
 
-def time_launches(label, kernel, calls, bound_of):
-    """The kernel alone at each recorded launch of one solve: its time
-    beside its bound, and two runs on the same input bit for bit."""
+def time_launches(label, kernel, calls, bound_of, what="launches of one solve"):
+    """The kernel alone at each of ``calls`` (the recorded launches of one
+    solve): its time beside its bound, and two runs on the same input bit
+    for bit."""
     total = 0.0
     for i, args in enumerate(calls):
         a, b = kernel(*args), kernel(*args)
@@ -480,14 +487,17 @@ def time_launches(label, kernel, calls, bound_of):
         print(f"# {label} launch {i}: T={T} S={args[0].shape[0]} kernel "
               f"{ms:.4f} ms, bound {bnd:.4f} ms ({by}), two runs bit-equal",
               flush=True)
-    print(f"# {label}: {total:.4f} ms of kernel in the {len(calls)} launches "
-          "of one solve", flush=True)
+    print(f"# {label}: {total:.4f} ms of kernel in the {len(calls)} {what}",
+          flush=True)
 
 
 # (T, S) on either side of the threshold below which each launcher splits the
-# sources across blocks (stokes_slp: 528 blocks, T <= 67,584; mh_slp: 2,112
-# blocks, T <= 270,336), and one whose T and S are multiples of no tile
-EDGE_SHAPES = {"stokes_slp": ((67584, 300), (67585, 300), (8193, 1023)),
+# sources across blocks (laplace_slp, laplace_grad and stokes_slp: 528 blocks
+# of 256 targets, T <= 67,584; mh_slp: 2,112 blocks, T <= 270,336), and one
+# whose T and S are multiples of no tile
+EDGE_SHAPES = {"laplace_slp": ((67584, 300), (67585, 300), (8193, 1023)),
+               "laplace_grad": ((67584, 300), (67585, 300), (8193, 1023)),
+               "stokes_slp": ((67584, 300), (67585, 300), (8193, 1023)),
                "mh_slp": ((270336, 300), (270337, 300), (8193, 1023))}
 
 
@@ -543,6 +553,13 @@ def poisson_phase(dev, K, counters):
         sx, sy, q, _, tx, ty = map(as_dev, cloud(seed=seed))
         grad_errs.append(compare(*grad, f"cloud seed {seed}",
                                  (sx, sy, q, tx, ty))[0])
+    for name, fns, into in (("laplace_slp", lap, errs),
+                            ("laplace_grad", grad, grad_errs)):
+        for T, S in EDGE_SHAPES[name]:
+            sx, sy, q, _, tx, ty = map(as_dev, cloud(T, S, seed=6))
+            into.append(compare(
+                *fns, f"cloud {K.split_count(name, T, S)} source range(s)",
+                (sx, sy, q, tx, ty))[0])
 
     t0 = time.perf_counter()
     ebdyc, grid, f, bc, solver, bie = build_problem(dev)
@@ -561,12 +578,15 @@ def poisson_phase(dev, K, counters):
                               merged, timed=True)
     errs.append(e)
     src = bie.src_list[0].dev(dev)
-    errs.append(compare(*lap, "BIE source -> physical grid",
-                        (src["x"], src["y"], q[:src["x"].shape[0]]
-                         .contiguous(), bie.phys_x, bie.phys_y))[0])
+    bie_grid = (src["x"], src["y"], q[:src["x"].shape[0]].contiguous(),
+                bie.phys_x, bie.phys_y)
     f0, tx, ty, gsx, gsy, gw = bie.radial_plans[0][0].groups[0]
-    errs.append(compare(*lap, f"BIE source -> radial rows (stride {f0})",
-                        (gsx, gsy, gw, tx, ty))[0])
+    radial = (gsx, gsy, gw, tx, ty)
+    for fns, into in ((lap, errs), (grad, grad_errs)):
+        into.append(compare(*fns, "BIE source -> physical grid",
+                            bie_grid)[0])
+        into.append(compare(*fns, f"BIE source -> radial rows (stride {f0})",
+                            radial)[0])
 
     def run():
         ue, stats = solver.solve_with_stats(f, tol=GMRES_TOL, maxiter=100,
@@ -594,11 +614,22 @@ def poisson_phase(dev, K, counters):
         raise RuntimeError("the Poisson solve launched no laplace_slp kernel")
     # the gradient at the merged shape, charged with the solve's own sigma_g
     gq = merged_sigma_g(solver, f) * solver.grid_src_w
+    grad_merged = (solver.grid_src_x, solver.grid_src_y, gq,
+                   solver._dense_tx, solver._dense_ty)
     ge, gms, gplain_ms = compare(
-        *grad, "merged sigma_g -> pna+interface",
-        (solver.grid_src_x, solver.grid_src_y, gq, solver._dense_tx,
-         solver._dense_ty), timed=True)
+        *grad, "merged sigma_g -> pna+interface", grad_merged, timed=True)
     grad_errs.append(ge)
+    # each kernel alone: the single layer at the six launches of one solve,
+    # the gradient (no solver calls it) at the merged and a radial shape
+    time_launches("laplace_slp", K.laplace_slp_apply,
+                  record_launch_args(run, K, "laplace_slp_apply"),
+                  lambda sx, sy, w, tx, ty: bound_ms(
+                      "laplace_slp", sx.shape[0], tx.shape[0]))
+    time_launches("laplace_grad", K.laplace_slp_grad_apply,
+                  [grad_merged, radial],
+                  lambda sx, sy, w, tx, ty: bound_ms(
+                      "laplace_grad", sx.shape[0], tx.shape[0]),
+                  what="launches above (merged, radial)")
     print(f"# poisson phase {time.perf_counter() - t_phase:.2f} s",
           flush=True)
     T = merged[3].shape[0]
@@ -876,7 +907,7 @@ def main():
         for lib in [pool.submit(fn) for fn in loaders]:
             lib.result()
     print(f"# build laplace_slp.cu + laplace_grad.cu + mh_slp.cu + "
-          f"stokes_slp.cu (the last two with fp64_math.cuh): "
+          f"stokes_slp.cu (all four with fp64_math.cuh): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     counters = {"laplace_slp": K.laplace_slp_apply,
                 "laplace_grad": K.laplace_slp_grad_apply,

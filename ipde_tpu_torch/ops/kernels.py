@@ -5,15 +5,20 @@ while target counts are large (grid points), so the layer potentials are
 dense quadrature sums evaluated on the fly.  On a CUDA tensor each sum runs
 in a hand-written FP64 kernel (``csrc/laplace_slp.cu``: the Laplace single
 layer; ``csrc/laplace_grad.cu``: its gradient; ``csrc/mh_slp.cu``: the
-modified Helmholtz (Yukawa) single layer); on a CPU tensor it runs in the
-plain torch version beside it.  The wrappers never fall back: a CUDA tensor
-goes to the kernel, or the call raises.
+modified Helmholtz (Yukawa) single layer; the Stokeslet's is bound in
+``ops/stokes_kernels.py``); on a CPU tensor it runs in the plain torch
+version beside it.  The wrappers never fall back: a CUDA tensor goes to the
+kernel, or the call raises.
 
-The Yukawa and Stokeslet kernels take their log, exp and K0 from
-``csrc/fp64_math.cuh`` and ``csrc/mh_slp.cu``; every table and coefficient
-those use is made here on the host (``log_table``, ``exp_table``,
-``k0_fit``) and handed to them, and ``fast_log``, ``fast_exp_neg`` and
-``k0_split`` are the same algorithms in torch, which the CPU tests hold.
+Every kernel takes its log, reciprocal, exp and K0 from
+``csrc/fp64_math.cuh`` and ``csrc/mh_slp.cu``, not from the CUDA library;
+every table and coefficient those use is made here on the host
+(``log_table``, ``exp_table``, ``k0_fit``) and handed to them, and
+``fast_log``, ``fast_exp_neg`` and ``k0_split`` are the same algorithms in
+torch, which the CPU tests hold.  A launch with few targets splits its
+sources across blocks: the launcher says into how many ranges
+(``split_count``) and the wrapper hands it the scratch tensor for the
+partial sums (``split_scratch``).
 
 All applies take sources as precomputed weighted charges (charge times
 quadrature weight, folded in by the caller).
@@ -53,9 +58,12 @@ K0_SERIES_DEG = 9
 K0_CHEB_LO, K0_CHEB_HI, K0_CHEB_DEG = 2.0, 36.0, 11
 K0_CHEB_BREAKS = (K0_CHEB_LO, 3.5, 7.0, K0_CHEB_HI)
 _EULER_GAMMA = 0.5772156649015328606
-# the table of the kernels' FP64 log (csrc/fp64_math.cuh): 2^LOG_TABLE_BITS
-# intervals of the mantissa, taken in [sqrt(1/2), sqrt(2)) as in fdlibm
+# the table of the kernels' FP64 log (csrc/fp64_math.cuh): 2^bits intervals
+# of the mantissa, taken in [sqrt(1/2), sqrt(2)) as in fdlibm.  The Stokeslet
+# and Yukawa kernels use 6 bits (8 KB of shared memory beside their other
+# tables), the Laplace kernel 8 (32 KB, two FP64 instructions fewer per log)
 LOG_TABLE_BITS = 6
+LAPLACE_LOG_TABLE_BITS = 8
 _LOG_SQRT_HALF_HI = 0x3fe6a09e       # high word of sqrt(1/2)
 _LN2_HI = float.fromhex("0x1.62e42feep-1")          # 21 trailing zero bits
 _LN2_LO = float.fromhex("0x1.a39ef35793c76p-33")    # log(2) - _LN2_HI
@@ -105,14 +113,16 @@ def load_library() -> ctypes._CFuncPtr:
     """The Laplace kernel's launcher, built at first use."""
     P, I64 = ctypes.c_void_p, ctypes.c_int64
     return build_library("laplace_slp", "laplace_slp_apply_f64",
-                         [P, P, P, I64, P, P, P, I64, ctypes.c_int, P])
+                         [P, P, P, I64, P, P, P, I64, P, P, P, I64,
+                          ctypes.c_int, P])
 
 
 def load_grad_library() -> ctypes._CFuncPtr:
     """The Laplace gradient kernel's launcher, built at first use."""
     P, I64 = ctypes.c_void_p, ctypes.c_int64
     return build_library("laplace_grad", "laplace_grad_apply_f64",
-                         [P, P, P, I64, P, P, P, P, I64, ctypes.c_int, P])
+                         [P, P, P, I64, P, P, P, P, I64, P, I64,
+                          ctypes.c_int, P])
 
 
 def load_mh_library() -> ctypes._CFuncPtr:
@@ -123,10 +133,12 @@ def load_mh_library() -> ctypes._CFuncPtr:
                           P, P, P, I64, ctypes.c_int, P])
 
 
+@functools.lru_cache(maxsize=256)
 def split_count(stem: str, T: int, S: int) -> int:
     """The number of source ranges the launcher of ``csrc/<stem>.cu`` will
     split S sources into for T targets (1: no split, no scratch).  The
-    launcher's own choice, from T and S alone."""
+    launcher's own choice, from T and S alone, so it is asked once per
+    shape: a solve repeats a handful of shapes."""
     fn = build_library(stem, f"{stem}_split_count",
                        [ctypes.c_int64, ctypes.c_int64])
     return fn(T, S)
@@ -206,9 +218,14 @@ def laplace_slp_apply(sx, sy, weighted_charge, tx, ty):
         return out
     if S == 0:
         return out.zero_()
-    _launch("laplace_slp", load_library(),
+    fn = load_library()
+    scratch = split_scratch("laplace_slp", T, S, 1, dev)
+    _launch("laplace_slp", fn,
             (sx.data_ptr(), sy.data_ptr(), weighted_charge.data_ptr(), S,
-             tx.data_ptr(), ty.data_ptr(), out.data_ptr(), T), dev)
+             tx.data_ptr(), ty.data_ptr(), out.data_ptr(), T,
+             device_table("laplace_log_table", dev).data_ptr(),
+             log_table(LAPLACE_LOG_TABLE_BITS).ctypes.data,
+             scratch.data_ptr(), scratch.numel()), dev)
     laplace_slp_apply.launches += 1
     return out
 
@@ -254,10 +271,12 @@ def laplace_slp_grad_apply(sx, sy, weighted_charge, tx, ty):
         return gx, gy
     if S == 0:
         return gx.zero_(), gy.zero_()
-    _launch("laplace_grad", load_grad_library(),
+    fn = load_grad_library()
+    scratch = split_scratch("laplace_grad", T, S, 2, dev)
+    _launch("laplace_grad", fn,
             (sx.data_ptr(), sy.data_ptr(), weighted_charge.data_ptr(), S,
-             tx.data_ptr(), ty.data_ptr(), gx.data_ptr(), gy.data_ptr(), T),
-            dev)
+             tx.data_ptr(), ty.data_ptr(), gx.data_ptr(), gy.data_ptr(), T,
+             scratch.data_ptr(), scratch.numel()), dev)
     laplace_slp_grad_apply.launches += 1
     return gx, gy
 
@@ -265,39 +284,42 @@ def laplace_slp_grad_apply(sx, sy, weighted_charge, tx, ty):
 laplace_slp_grad_apply.launches = 0
 
 
-
-
 # ---------------------------------------------------------------------------
 # the kernels' FP64 log: its table and its twin
 # ---------------------------------------------------------------------------
 
-# log1p(r) = r (1 + r Q(r)), Q(r) = -1/2 + r/3 - ... + r^5/7: |r|^8 / 8 < 2e-18
+# log1p(r) = r (1 + r Q(r)), Q(r) = -1/2 + r/3 - ... + r^5/7; a table of
+# `bits` bits gives |r| < 2^-(bits + 0.9) and Q is cut at the degree that
+# keeps the first dropped term, |r|^(degree + 3) / (degree + 3), below 2e-17
 _LOG1P_Q = tuple((-1.0) ** (j + 1) / j for j in range(2, 8))
+_LOG1P_DEGREE = {6: 5, 8: 3}
 
 
-@functools.lru_cache(maxsize=1)
-def log_table() -> np.ndarray:
-    """What the kernels' FP64 log needs (``csrc/fp64_math.cuh`` ``log_pos``;
-    ``fast_log`` is its twin), as one (2^LOG_TABLE_BITS + 5, 2) array: the
-    table (c_i, -log c_i), then the constants in the order of the header's
-    ``LogConsts``: log 2 split hi/lo, the six coefficients of Q, and the
-    kernels' clamp of r^2.
+@functools.lru_cache(maxsize=None)
+def log_table(bits: int = LOG_TABLE_BITS) -> np.ndarray:
+    """What the kernels' FP64 log needs (``csrc/fp64_math.cuh`` ``log_pos``
+    and ``log_normal``; ``fast_log`` is their twin), as one (2^bits + 5, 2)
+    array: the table (c_i, -log c_i), then the constants in the order of the
+    header's ``LogConsts``: log 2 split hi/lo, the six coefficients of Q (a
+    table of more bits uses fewer), and the kernels' clamp of r^2.
 
     A positive normal a = 2^e m with m in [sqrt(1/2), sqrt(2)); interval i
-    is the top LOG_TABLE_BITS bits of m's offset from sqrt(1/2) in the high
-    word, c_i the reciprocal of the interval's midpoint cut to 20 bits, so
-    that r = fma(m, c_i, -1) is small (|r| < 2^-6.9) and log a = e log 2 -
-    log c_i + log1p(r).  The interval that holds m = 1 has c = 1 exactly.
+    is the top ``bits`` bits of m's offset from sqrt(1/2) in the high word,
+    c_i the reciprocal of the interval's midpoint cut to 20 bits, so that
+    r = fma(m, c_i, -1) is small (|r| < 2^-(bits + 0.9)) and log a = e log 2
+    - log c_i + log1p(r).  The interval that holds m = 1 has c = 1 exactly.
     The one source of these numbers: the kernels are handed them."""
-    n = 1 << LOG_TABLE_BITS
-    step = 1 << (20 - LOG_TABLE_BITS)
+    n = 1 << bits
+    step = 1 << (20 - bits)
     edges = (((np.arange(n + 1, dtype=np.int64) * step + _LOG_SQRT_HALF_HI)
               << 32).view(np.float64))
     mant, ex = np.frexp(2.0 / (edges[:-1] + edges[1:]))
     c = np.ldexp(np.round(mant * 2.0 ** 20) / 2.0 ** 20, ex)
     c[(edges[:-1] <= 1.0) & (1.0 < edges[1:])] = 1.0
     r_max = np.maximum(edges[1:] * c - 1.0, 1.0 - edges[:-1] * c).max()
-    if not r_max < 2.0 ** -6.9:
+    degree = _LOG1P_DEGREE[bits]
+    if not (r_max < 2.0 ** -(bits + 0.9)
+            and r_max ** (degree + 3) / (degree + 3) < 2e-17):
         raise RuntimeError(f"log table: |r| reaches {r_max:.3e}")
     consts = np.array([_LN2_HI, _LN2_LO, *_LOG1P_Q, _MIN_R2, 0.0])
     table = np.concatenate([np.stack([c, -np.log(c)], axis=1),
@@ -306,29 +328,35 @@ def log_table() -> np.ndarray:
     return table
 
 
-def fast_log(a):
+def fast_log(a, bits: int = LOG_TABLE_BITS, split_ln2: bool = True):
     """log(a) for positive normal float64 ``a`` by the kernels' algorithm
-    (``csrc/fp64_math.cuh`` ``log_pos``): the same table, polynomial and
-    split log 2, with the kernel's fma(m, c_i, -1) formed exactly by
-    Dekker's splitting (c_i has 20 bits).  Absolute error at most 4e-16
-    max(1, |log a|).  The CPU tests hold the algorithm through this twin;
-    the applies' plain versions use ``torch.log``."""
-    table = device_table("log_table", a.device)
-    n = 1 << LOG_TABLE_BITS
-    bits = a.contiguous().view(torch.int64)
-    ha = (bits >> 32) - _LOG_SQRT_HALF_HI
+    (``csrc/fp64_math.cuh``): the table of ``bits`` bits, its polynomial and,
+    with ``split_ln2``, log 2 added in two pieces (``log_pos``, what the
+    Stokeslet and Yukawa kernels call with 6 bits) or else in one
+    (``log_normal``, what the Laplace kernel calls with 8 bits); the kernel's
+    fma(m, c_i, -1) is formed exactly by Dekker's splitting (c_i has 20
+    bits).  Absolute error at most 4e-16 max(1, |log a|).  The CPU tests hold
+    the algorithm through this twin; the applies' plain versions use
+    ``torch.log``."""
+    table = torch.tensor(log_table(bits), device=a.device)
+    n = 1 << bits
+    bits64 = a.contiguous().view(torch.int64)
+    ha = (bits64 >> 32) - _LOG_SQRT_HALF_HI
     e = (ha >> 20).to(torch.float64)
-    idx = (ha >> (20 - LOG_TABLE_BITS)) & (n - 1)
+    idx = (ha >> (20 - bits)) & (n - 1)
     m = ((((ha & 0xFFFFF) + _LOG_SQRT_HALF_HI) << 32)
-         | (bits & 0xFFFFFFFF)).view(torch.float64)
+         | (bits64 & 0xFFFFFFFF)).view(torch.float64)
     c, mlogc = table[idx, 0], table[idx, 1]
     t = m * 134217729.0                     # 2^27 + 1: m = m_hi + m_lo
     m_hi = t - (t - m)
     r = (m_hi * c - 1.0) + (m - m_hi) * c   # every product exact
-    h = torch.full_like(r, _LOG1P_Q[-1])
-    for qj in _LOG1P_Q[-2::-1]:
+    q = _LOG1P_Q[:_LOG1P_DEGREE[bits] + 1]
+    h = torch.full_like(r, q[-1])
+    for qj in q[-2::-1]:
         h = h * r + qj
-    return r * (r * h + 1.0) + (e * _LN2_LO + (e * _LN2_HI + mlogc))
+    if split_ln2:
+        return r * (r * h + 1.0) + (e * _LN2_LO + (e * _LN2_HI + mlogc))
+    return e * (_LN2_HI + _LN2_LO) + (r * (r * h + 1.0) + mlogc)
 
 
 EXP_TABLE_ENTRIES = 32
@@ -546,12 +574,14 @@ _dev_tables = {}
 
 
 def device_table(name: str, dev):
-    """The host table ``log_table``, ``exp_table`` or ``k0_fit`` as a tensor
-    on ``dev``, uploaded once."""
+    """The host table ``log_table`` (6 bits), ``laplace_log_table`` (the log
+    table of LAPLACE_LOG_TABLE_BITS bits), ``exp_table`` or ``k0_fit`` as a
+    tensor on ``dev``, uploaded once."""
     t = _dev_tables.get((name, dev))
     if t is None:
         host = {"log_table": log_table, "exp_table": exp_table,
-                "k0_fit": k0_fit}[name]()
+                "k0_fit": k0_fit, "laplace_log_table": functools.partial(
+                    log_table, LAPLACE_LOG_TABLE_BITS)}[name]()
         t = _dev_tables.setdefault((name, dev),
                                    torch.tensor(host, device=dev))
     return t

@@ -1,20 +1,23 @@
 """Instruction counts of the port's CUDA kernels, read from their SASS.
 
-    python3 tools/torch_kernel_sass.py [--stems stokes_slp mh_slp]
-                                       [--out build/sass] [--paths]
-                                       [--ncu]
+    python3 tools/torch_kernel_sass.py [--stems laplace_slp laplace_grad
+                                        stokes_slp mh_slp] [--root DIR]
+                                       [--out build/sass] [--paths] [--ncu]
 
 Builds ``ipde_tpu_torch/csrc/<stem>.cu`` as the port does (nvcc, sm_90a),
 disassembles the library with ``cuobjdump -sass`` and, for every kernel and
 every loop of it (a branch back to a lower address), prints the
 instructions of the loop by opcode: the FP64 ones (DFMA, DMUL, DADD, DSETP,
-DMNMX), MUFU, the shared-memory loads (LDS) and the rest.  Loops are
+DMNMX), MUFU, the shared-memory loads (LDS), the conversions to and from
+64-bit types (I2F, F2I, F2F: they run at a fraction of the FP64 rate) and
+the rest.  Loops are
 listed innermost (shortest) first; a loop that the compiler unrolled holds
 several source iterations, so divide by the number of pairs that its LDS
 count implies.  ``--paths`` cuts the innermost loop with FP64 work into its
 straight-line segments, so that the instructions of each branch of a loop
 body (the Yukawa kernel's K0) can be added up along it.  The whole
-disassembly goes to ``--out``.  ``--ncu`` also
+disassembly goes to ``--out``.  ``--root DIR`` reads the sources of another
+checkout (an earlier commit unpacked there).  ``--ncu`` also
 tries Nsight Compute's FP64 pipe counters on one Stokeslet apply and says
 whether the machine permits them.  The registers, shared memory and
 spills that ptxas reports are printed first.  Needs the CUDA toolkit; the
@@ -35,6 +38,7 @@ sys.path.insert(0, ROOT)
 INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
                    r"\s*([^;]*);")
 FP64 = ("DFMA", "DMUL", "DADD", "DSETP", "DMNMX")
+CONVERSIONS = ("I2F", "F2I", "F2F")
 NCU_SNIPPET = """
 import torch, sys
 sys.path.insert(0, %r)
@@ -87,7 +91,8 @@ def histogram(instrs, start, end):
     fp64 = {k: c.pop(k) for k in FP64 if k in c}
     mufu = c.pop("MUFU", 0)
     lds = c.pop("LDS", 0)
-    return fp64, mufu, lds, c
+    conv = sum(c.pop(k, 0) for k in CONVERSIONS)
+    return fp64, mufu, lds, conv, c
 
 
 CONTROL = ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "BREAK")
@@ -139,14 +144,16 @@ def report(stem, out_dir, paths=False):
     with open(os.path.join(out_dir, f"{stem}.sass"), "w") as fh:
         fh.write(sass)
     for name, instrs in functions(sass).items():
-        fp64, mufu, lds, rest = histogram(instrs, 0, 1 << 62)
+        fp64, mufu, lds, conv, rest = histogram(instrs, 0, 1 << 62)
         print(f"# {stem}: {name}: {len(instrs)} instructions, FP64 "
-              f"{sum(fp64.values())} {fp64}, MUFU {mufu}, LDS {lds}")
+              f"{sum(fp64.values())} {fp64}, MUFU {mufu}, LDS {lds}, "
+              f"conversions {conv}")
         for start, end in loops(instrs):
-            fp64, mufu, lds, rest = histogram(instrs, start, end)
+            fp64, mufu, lds, conv, rest = histogram(instrs, start, end)
             print(f"#   loop {start:#06x}-{end:#06x}: FP64 "
                   f"{sum(fp64.values())} {fp64}, MUFU {mufu}, LDS {lds}, "
-                  f"other {sum(rest.values())} {dict(rest.most_common(8))}")
+                  f"conversions {conv}, "
+                  f"other {sum(rest.values())} {dict(rest.most_common(10))}")
         inner = [se for se in loops(instrs)
                  if histogram(instrs, *se)[0]]
         if paths and inner:     # the innermost loop that holds FP64 work
@@ -178,13 +185,18 @@ def try_ncu():
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--stems", nargs="+", default=["stokes_slp", "mh_slp"])
+    ap.add_argument("--stems", nargs="+",
+                    default=["laplace_slp", "laplace_grad", "stokes_slp",
+                             "mh_slp"])
+    ap.add_argument("--root", default=ROOT,
+                    help="the checkout whose ipde_tpu_torch is read")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "sass"))
     ap.add_argument("--ncu", action="store_true")
     ap.add_argument("--paths", action="store_true",
                     help="also cut each kernel's innermost FP64 loop into "
                     "its straight-line segments")
     args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
     for stem in args.stems:
         report(stem, args.out, args.paths)
     if args.ncu:

@@ -1,8 +1,9 @@
-"""Time the Stokeslet and Yukawa kernels at the six launch shapes of each
+"""Time the dense layer-potential kernels at the six launch shapes of each
 chip_smoke.py problem, without building the solvers.
 
-    python3 tools/torch_kernel_shapes.py [--root DIR] [--problems stokes mh2 mh100]
-                                         [--check] [--reps 20] [--row-major]
+    python3 tools/torch_kernel_shapes.py [--root DIR] [--check] [--reps 20]
+                                         [--problems poisson stokes mh2 mh100]
+                                         [--row-major]
 
 Builds only the geometry of a problem (curve, embedded boundary, box grid:
 seconds, where the solvers' QFS maps take up to minutes), then the inputs of
@@ -10,7 +11,9 @@ the six dense-kernel launches of one solve, as the solvers form them: the
 merged apply (interface QFS sources -> grid points outside the annulus +
 interface points), the two radial groups of the annular correction, the BIE's
 grid apply (boundary QFS sources -> every physical grid point) and its two
-radial groups.  Charges are random (seeded).  Grid targets are put in
+radial groups.  The ``poisson`` problem times both Laplace kernels there: the
+single layer (the solve's six launches) and its gradient (no solver calls
+it: the same six shapes).  Charges are random (seeded).  Grid targets are put in
 ``ops.kernels.spatial_order`` where the package has it and the solver uses it
 (the Yukawa problems), unless ``--row-major``.  Each launch is timed with
 CUDA events (kernel only) beside its bound (chip_smoke.bound_ms /
@@ -36,10 +39,11 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-# name: (pde, k, nb, M, grid_target)
-PROBLEMS = {"stokes": ("stokes", None, 1200, 16, 1024),
-            "mh2": ("mh", 2.0, 800, 20, None),
-            "mh100": ("mh", 100.0, 600, 24, None)}
+# name: (pde, k, nb, M, grid_target, lobes f of star(nb, a=0.2, f))
+PROBLEMS = {"poisson": ("laplace", None, 1200, 16, None, 3),
+            "stokes": ("stokes", None, 1200, 16, 1024, 5),
+            "mh2": ("mh", 2.0, 800, 20, None, 5),
+            "mh100": ("mh", 100.0, 600, 24, None, 5)}
 
 
 def launches(name, dev, ordered):
@@ -50,8 +54,8 @@ def launches(name, dev, ordered):
     from ipde_tpu_torch.ops import kernels
     from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 
-    pde, k, nb, M, grid_target = PROBLEMS[name]
-    bdy = star(nb, a=0.2, f=5)
+    pde, k, nb, M, grid_target, lobes = PROBLEMS[name]
+    bdy = star(nb, a=0.2, f=lobes)
     bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
     if grid_target:
         bh = min(bh, float(bdy.x.max() - bdy.x.min()) / (grid_target - 3 * M))
@@ -144,36 +148,60 @@ def main():
     for name in args.problems:
         pde, k, todo = launches(name, dev, not args.row_major)
         for label, (sx, sy, w, tx, ty) in todo:
-            S, T = sx.shape[0], tx.shape[0]
-            row = {"problem": name, "launch": label, "T": T, "S": S}
-            if pde == "stokes":
-                w2 = w.flip(0).contiguous()
-                run = lambda: stokes_kernels.stokes_slp_apply(  # noqa: E731
-                    sx, sy, w, w2, tx, ty)
-                plain = lambda: stokes_kernels.stokes_slp_apply_plain(  # noqa: E731
-                    sx, sy, w, w2, tx, ty)
-                err = cs.stokes_err
-                row["bound_ms"] = cs.bound_ms("stokes_slp", S, T)[0]
-            else:
-                run = lambda: (kernels.mh_slp_apply(  # noqa: E731
-                    sx, sy, w, tx, ty, k),)
-                plain = lambda: (kernels.mh_slp_apply_plain(  # noqa: E731
-                    sx, sy, w, tx, ty, k),)
-                err = lambda g, p: cs.laplace_err(g[0], p[0])  # noqa: E731
-                bnd, _, counts = cs.mh_bound_ms(sx, sy, tx, ty, k)
-                row["bound_ms"] = bnd
-                row["pairs"] = counts
-                row["diverged"] = cs.mh_divergence_share(sx, sy, tx, ty, k)
-            a, b = run(), run()
-            torch.cuda.synchronize()
-            row["bit_equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
-            if args.check:
-                row["max_rel"] = err(a, plain())[1]
-            row["ms"] = cuda_ms(run, args.reps)
-            print(json.dumps(row), flush=True)
-            if not row["bit_equal"] or row.get("max_rel", 0.0) > 1e-12:
-                raise SystemExit(f"{name} {label}: {row}")
+            for kernel in {"laplace": ("laplace_slp", "laplace_grad"),
+                           "stokes": ("stokes_slp",), "mh": ("mh_slp",)}[pde]:
+                time_launch(args, cs, kernels, stokes_kernels, name, label,
+                            kernel, (sx, sy, w, tx, ty), k)
 
+
+def time_launch(args, cs, kernels, stokes_kernels, name, label, kernel,
+                inputs, k):
+    """One launch of ``kernel`` on ``inputs``: print its JSON line; exit if
+    two runs differ or ``--check`` finds it off the plain version."""
+    sx, sy, w, tx, ty = inputs
+    S, T = sx.shape[0], tx.shape[0]
+    row = {"problem": name, "launch": label, "kernel": kernel, "T": T, "S": S}
+    if kernel == "stokes_slp":
+        w2 = w.flip(0).contiguous()
+        run = lambda: stokes_kernels.stokes_slp_apply(  # noqa: E731
+            sx, sy, w, w2, tx, ty)
+        plain = lambda: stokes_kernels.stokes_slp_apply_plain(  # noqa: E731
+            sx, sy, w, w2, tx, ty)
+        err = cs.stokes_err
+    elif kernel == "mh_slp":
+        run = lambda: (kernels.mh_slp_apply(  # noqa: E731
+            sx, sy, w, tx, ty, k),)
+        plain = lambda: (kernels.mh_slp_apply_plain(  # noqa: E731
+            sx, sy, w, tx, ty, k),)
+        err = lambda g, p: cs.laplace_err(g[0], p[0])  # noqa: E731
+    elif kernel == "laplace_slp":
+        run = lambda: (kernels.laplace_slp_apply(  # noqa: E731
+            sx, sy, w, tx, ty),)
+        plain = lambda: (kernels.laplace_slp_apply_plain(  # noqa: E731
+            sx, sy, w, tx, ty),)
+        err = lambda g, p: cs.laplace_err(g[0], p[0])  # noqa: E731
+    else:
+        run = lambda: kernels.laplace_slp_grad_apply(  # noqa: E731
+            sx, sy, w, tx, ty)
+        plain = lambda: kernels.laplace_slp_grad_apply_plain(  # noqa: E731
+            sx, sy, w, tx, ty)
+        err = cs.grad_err
+    if kernel == "mh_slp":
+        bnd, _, counts = cs.mh_bound_ms(sx, sy, tx, ty, k)
+        row["bound_ms"] = bnd
+        row["pairs"] = counts
+        row["diverged"] = cs.mh_divergence_share(sx, sy, tx, ty, k)
+    else:
+        row["bound_ms"] = cs.bound_ms(kernel, S, T)[0]
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    row["bit_equal"] = all(torch.equal(x, y) for x, y in zip(a, b))
+    if args.check:
+        row["max_rel"] = err(a, plain())[1]
+    row["ms"] = cuda_ms(run, args.reps)
+    print(json.dumps(row), flush=True)
+    if not row["bit_equal"] or row.get("max_rel", 0.0) > 1e-12:
+        raise SystemExit(f"{name} {label}: {row}")
 
 if __name__ == "__main__":
     main()

@@ -53,6 +53,21 @@ phase prints its seconds):
      launches from its run.
   5. print the kernels' JSON line, the card's name and power limit, then
      the device JSON line last.
+The four solves above run with grid_backend="dense": the merged sigma_g and
+the BIE field go onto the physical grid points through the CUDA kernels.
+Then the Poisson, Stokes and k = 2 Yukawa problems run again on the same
+collection with the solvers' default grid_backend="fft" (the free-space FFT
+evaluators of ipde_tpu_torch/ops/grid_eval.py; the k = 100 Neumann problem,
+whose host setup alone is over a minute, stays dense-only): both evaluators
+of each (the solver's merged sigma_g, the BIE's) are held to the dense CUDA
+kernel at every physical point, max |fft - dense| / max(1, max|dense|) <=
+1e-12 (Laplace, Yukawa), 1e-10 (velocity) and 1e-11 (pressure), with two
+runs compared bit for bit and each timed beside the dense apply it
+replaces; each fft solve must meet its problem's error limit, residual and
+kernel launches.  For both backends each problem prints, from this run: the
+setup seconds, the first solve, the warm solve's median of WARM_RUNS runs
+with min and max, and the device time per solve and idle share of 3 solves
+traced by torch.profiler.
 The Stokeslet and Yukawa kernels are also (phases 3 and 4, on lines of their
 own): timed alone at all six launch shapes of their problem beside the bound,
 each launch run twice with bit-equal outputs.  Every kernel is compared with
@@ -65,9 +80,10 @@ reciprocal and reciprocal square root (csrc/fp64_math.cuh) are held to
 torch's on 1e6 values of r^2 over [1e-30, 1e3], values within 1e-8 of 1 among
 them.
 
-Each main path runs with every kernel's launch count set to 0 just before
-it and read just after; the comparisons with the plain versions are not
-counted.  ``bound_ms`` is the larger of the bytes the function must move
+Each main path (each problem, each backend) runs with every kernel's launch
+count set to 0 just before it and read just after; a kernel's ``launches``
+in the JSON line is the sum over its main-path runs; the comparisons with
+the plain versions and the dense kernel are not counted.  ``bound_ms`` is the larger of the bytes the function must move
 (each input read once, each output written once) over 3.35 TB/s and its
 FP64 operations over 34 TFLOP/s, the H100 SXM's FP64 peak outside the
 tensor cores (NVIDIA H100 data sheet); operations are counted per
@@ -94,6 +110,7 @@ TOL_SOLVE_ERR = 2.5e-11          # Poisson, nb=1200 (reference ledger)
 TOL_STOKES_VEL = 3.3441e-10      # reference Stokes plateau
 TOL_STOKES_P = 8e-8              # tests/test_interior_stokes.py
 GMRES_TOL = 1e-12
+WARM_RUNS = 10
 # (name, k, nb, M, BIE, error limit): the modified Helmholtz problems
 MH_CASES = (
     ("mh_dirichlet_k2", 2.0, 800, 20, "dirichlet", 2.5e-10),
@@ -273,8 +290,9 @@ def compare(kernel, plain, err, label, args, timed=False, plain_reps=5):
     return abs_err, ms, plain_ms
 
 
-def build_problem(dev, nb=1200, M=16):
-    """The Poisson problem of the reference paper's refinement row."""
+def build_problem(dev, nb=1200, M=16, backend="fft"):
+    """The Poisson problem of the reference paper's refinement row, solved
+    with grid backend ``backend``."""
     from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
     from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
     from ipde_tpu_torch.geometry.curve import star
@@ -289,14 +307,16 @@ def build_problem(dev, nb=1200, M=16):
     grid = ebdyc.generate_grid(bh)
     f = EmbeddedFunction.from_function(ebdyc, frc)
     bc = BoundaryFunction.from_function(ebdyc, sol)
-    solver = PoissonSolver(ebdyc)
+    solver = PoissonSolver(ebdyc, grid_backend=backend)
     bie = DirichletBIE(solver)
     return ebdyc, grid, f, bc, solver, bie
 
 
-def build_stokes_problem(dev=None, nb=1200, M=16, grid_target=1024):
+def build_stokes_problem(dev=None, nb=1200, M=16, grid_target=1024,
+                         backend="fft"):
     """bench.py's Stokes problem (tier 1 at the defaults): h as bench.py
-    sizes it for grid_target; the collection on ``dev`` (None: the card)."""
+    sizes it for grid_target; the collection on ``dev`` (None: the card),
+    solved with grid backend ``backend``."""
     from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
     from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
     from ipde_tpu_torch.geometry.curve import star
@@ -314,14 +334,15 @@ def build_stokes_problem(dev=None, nb=1200, M=16, grid_target=1024):
     fv = EmbeddedFunction.from_function(ebdyc, fvf)
     bcs = (BoundaryFunction.from_function(ebdyc, usol),
            BoundaryFunction.from_function(ebdyc, vsol))
-    solver = StokesSolver(ebdyc)
+    solver = StokesSolver(ebdyc, grid_backend=backend)
     bie = StokesDirichletBIE(solver)
     return ebdyc, grid, (fu, fv), bcs, solver, bie
 
 
-def build_mh_problem(dev, k, nb, M, bie_kind):
+def build_mh_problem(dev, k, nb, M, bie_kind, backend="fft"):
     """An interior modified Helmholtz problem of MH_CASES, with the
-    manufactured solution mh_sol; ``bie_kind`` "dirichlet" or "neumann"."""
+    manufactured solution mh_sol; ``bie_kind`` "dirichlet" or "neumann";
+    grid backend ``backend``."""
     from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
     from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
     from ipde_tpu_torch.geometry.curve import star
@@ -336,7 +357,7 @@ def build_mh_problem(dev, k, nb, M, bie_kind):
     grid = ebdyc.generate_grid(bh)
     f = EmbeddedFunction.from_function(
         ebdyc, lambda x, y: k * k * mh_sol(x, y) - mh_lap_sol(x, y))
-    solver = ModifiedHelmholtzSolver(ebdyc, k=k)
+    solver = ModifiedHelmholtzSolver(ebdyc, k=k, grid_backend=backend)
     if bie_kind == "neumann":
         ux, uy = mh_grad_sol(bdy.x, bdy.y)
         bc = BoundaryFunction([torch.as_tensor(
@@ -412,7 +433,7 @@ def max_err(ebdyc, ef, f, shift=0.0):
 
 def timed_runs(run, counters):
     """Drive ``run`` once with every launch count set to 0 just before and
-    read just after, then three warm runs; returns (result, launches by
+    read just after, then WARM_RUNS warm runs; returns (result, launches by
     kernel, first s, warm s list)."""
     for c in counters.values():
         c.launches = 0
@@ -421,11 +442,143 @@ def timed_runs(run, counters):
     first = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     warm = []
-    for _ in range(3):
+    for _ in range(WARM_RUNS):
         t0 = time.perf_counter()
         run()
         warm.append(time.perf_counter() - t0)
     return out, launches, first, warm
+
+
+def warm_text(warm):
+    """'median ms (min, max, n runs)' of warm run seconds."""
+    ms = [w * 1e3 for w in warm]
+    return (f"{statistics.median(ms):.1f} ms (min {min(ms):.1f}, max "
+            f"{max(ms):.1f}, {len(ms)} runs)")
+
+
+def profile_device(run, reps=3):
+    """``reps`` runs traced by torch.profiler: (wall ms per run, device
+    kernel ms per run, idle share of the traced window)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = 1e-3 * sum(e.device_time_total for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    if busy <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return wall / reps, busy / reps, 1.0 - busy / wall
+
+
+def report_backend(label, backend, setup_s, first_s, warm, run):
+    """One line per backend of one problem, in one format: setup, first
+    and warm solve, and the profiled device time and idle share."""
+    wall, busy, idle = profile_device(run)
+    print(f"# {label} [{backend}]: setup {setup_s:.2f} s, first solve "
+          f"{first_s * 1e3:.1f} ms, warm {warm_text(warm)}; profiled "
+          f"(3 solves, profiler on): wall {wall:.3f} ms, device "
+          f"{busy:.3f} ms per solve, idle share {idle:.3f}", flush=True)
+
+
+def hold_evaluator(label, ev, kernel, src, w, phys, limits, replaced,
+                   seed=11):
+    """The FFT grid evaluator ``ev`` over the sources src = (sx, sy) against
+    the dense CUDA ``kernel`` (sx, sy, *charges, tx, ty) at the physical
+    points phys = (flat index, x, y), on charges N(0, 1) times the
+    quadrature weights w (two force components where ``limits`` has three
+    entries, u v p).  Requires max |evaluator - dense| / max(1, max|dense|)
+    <= the limit of each output; prints whether two runs are bit-equal, the
+    evaluator's ms per apply and the dense kernel's at ``replaced`` (the
+    targets of the dense apply it stands in for).  Returns (evaluator ms,
+    dense ms)."""
+    rng = np.random.default_rng(seed)
+    qs = [torch.as_tensor(rng.standard_normal(w.shape[0]), device=w.device)
+          * w for _ in range(2 if len(limits) == 3 else 1)]
+    got, again = (ev(*qs) for _ in range(2))
+    got, again = (o if isinstance(o, tuple) else (o,) for o in (got, again))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+    want = kernel(*src, *qs, phys[1], phys[2])
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    rels = [float((g.reshape(-1)[phys[0]] - d).abs().max())
+            / max(1.0, float(d.abs().max())) for g, d in zip(got, want)]
+    ev_ms = cuda_ms(lambda: ev(*qs), reps=50)
+    dense_ms = cuda_ms(lambda: kernel(*src, *qs, *replaced), reps=50)
+    print(f"# {label}: padded box {ev.Px}x{ev.Py}, L {ev.L:.4f}, {ev.S} "
+          f"sources, {ev._patches.values().numel()} correction entries; "
+          f"max |fft - dense| / max(1, |dense|) at {phys[0].shape[0]} "
+          f"physical points {', '.join(f'{r:.3e}' for r in rels)} (limits "
+          f"{', '.join(f'{t:.0e}' for t in limits)}); two runs "
+          f"{'bit-equal' if bit_equal else 'NOT bit-equal'}; evaluator "
+          f"{ev_ms:.4f} ms per apply, the dense kernel it replaces "
+          f"({replaced[0].shape[0]} targets) {dense_ms:.4f} ms", flush=True)
+    if not all(r <= t for r, t in zip(rels, limits)):
+        raise RuntimeError(f"{label}: the FFT evaluator disagrees with the "
+                           "dense kernel")
+    return ev_ms, dense_ms
+
+
+def scalar_fft_run(label, make_solver, bie_cls, f, bc, exact, limit,
+                   counters, kname, kernel, dense_solver, dense_bie, held):
+    """The fft grid backend of a scalar problem on the dense problem's
+    collection: build PoissonSolver / ModifiedHelmholtzSolver (``make_solver``)
+    and ``bie_cls``, hold both evaluators to the dense kernel, drive the
+    solve (launch counts from this run), require its error below ``limit``
+    against ``exact``, a GMRES residual <= tol and ``kname`` launches, then
+    hold the solve's launches with hold_fft_launches(*held).  Returns that
+    run's launches of ``kname`` and the interface launch's max abs
+    difference from the plain version."""
+    ebdyc = dense_solver.ebdyc
+    t0 = time.perf_counter()
+    solver = make_solver()
+    bie = bie_cls(solver)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if solver.grid_backend != "fft":
+        raise RuntimeError(f"{label}: the default grid backend is "
+                           f"{solver.grid_backend}, not fft")
+    phys = (dense_bie.phys_flat, dense_bie.phys_x, dense_bie.phys_y)
+    hold_evaluator(f"{label} [fft] merged sigma_g evaluator",
+                   solver.grid_eval, kernel,
+                   (solver.grid_src_x, solver.grid_src_y), solver.grid_src_w,
+                   phys, (1e-12,),
+                   (dense_solver._dense_tx, dense_solver._dense_ty))
+    src = bie.src_list[0].dev(ebdyc.device)
+    hold_evaluator(f"{label} [fft] BIE evaluator", bie.grid_eval, kernel,
+                   (src["x"], src["y"]), src["weights"], phys, (1e-12,),
+                   phys[1:])
+
+    def run():
+        ue, stats = solver.solve_with_stats(f, tol=GMRES_TOL, maxiter=100,
+                                            restart=30)
+        ue = bie.apply_bc(ue, bc)
+        torch.cuda.synchronize()
+        return ue, stats
+
+    (ue, stats), launches, first_s, warm = timed_runs(run, counters)
+    grid_err, rad_err = max_err(ebdyc, ue, exact)
+    err = max(grid_err, rad_err)
+    resid = stats["annular_residuals"][0]
+    print(f"# {label} [fft] solve: {stats['annular_iterations'][0]} GMRES "
+          f"iterations, residual {resid:.3e}, max error {err:.3e} (grid "
+          f"{grid_err:.3e}, radial {rad_err:.3e}; limit {limit:.3g}), "
+          f"launches {launches}", flush=True)
+    if not (math.isfinite(err) and err < limit):
+        raise RuntimeError(f"{label} [fft] error {err:.3e} >= {limit}")
+    if not resid <= GMRES_TOL:
+        raise RuntimeError(f"{label} [fft] annular GMRES residual "
+                           f"{resid:.3e} > {GMRES_TOL}")
+    if launches[kname] <= 0:
+        raise RuntimeError(f"the {label} fft solve launched no {kname} "
+                           "kernel")
+    report_backend(label, "fft", setup_s, first_s, warm, run)
+    return launches[kname], hold_fft_launches(label, run,
+                                              ebdyc.all_interface_x_dev, *held)
 
 
 def merged_sigma_g(solver, f):
@@ -465,6 +618,26 @@ def record_launch_args(run, module, name):
         setattr(module, name, orig)
         orig.launches = wrapped.launches
     return calls
+
+
+def hold_fft_launches(label, run, iface_x, module, name, plain, err,
+                      bound_of):
+    """The launches of ``module.name`` in one fft solve of ``run``: the
+    interface launch (targets ``iface_x``: the merged sigma_g onto the
+    interface points only, a shape no dense launch has) against the plain
+    version, timed, and every launch alone beside its bound
+    (time_launches).  Returns the interface launch's max abs difference."""
+    kernel = getattr(module, name)
+    calls = record_launch_args(run, module, name)
+    iface = [a for a in calls if any(t is iface_x for t in a)]
+    if len(iface) != 1:
+        raise RuntimeError(f"{label} [fft]: {len(iface)} launches onto the "
+                           "interface points, not 1")
+    abs_err = compare(kernel, plain, err,
+                      f"{label} [fft] merged sigma_g -> interface", iface[0],
+                      timed=True, plain_reps=2)[0]
+    time_launches(f"{name} {label} [fft]", kernel, calls, bound_of)
+    return abs_err
 
 
 def time_launches(label, kernel, calls, bound_of, what="launches of one solve"):
@@ -562,7 +735,7 @@ def poisson_phase(dev, K, counters):
                 (sx, sy, q, tx, ty))[0])
 
     t0 = time.perf_counter()
-    ebdyc, grid, f, bc, solver, bie = build_problem(dev)
+    ebdyc, grid, f, bc, solver, bie = build_problem(dev, backend="dense")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     dof = int(ebdyc.phys.sum() + np.prod(ebdyc.ebdys[0].radial_shape))
@@ -600,9 +773,8 @@ def poisson_phase(dev, K, counters):
     err = max(grid_err, rad_err)
     iters = stats["annular_iterations"][0]
     resid = stats["annular_residuals"][0]
-    print(f"# poisson solve: first {first_s * 1e3:.1f} ms, warm median "
-          f"{statistics.median(warm) * 1e3:.1f} ms "
-          f"(runs {', '.join(f'{w * 1e3:.1f}' for w in warm)} ms), "
+    print(f"# poisson solve: first {first_s * 1e3:.1f} ms, warm "
+          f"{warm_text(warm)}, "
           f"{iters} GMRES iterations, residual {resid:.3e}, "
           f"max error {err:.3e} (grid {grid_err:.3e}, radial {rad_err:.3e}), "
           f"launches {launches}", flush=True)
@@ -612,6 +784,7 @@ def poisson_phase(dev, K, counters):
         raise RuntimeError(f"annular GMRES residual {resid:.3e} > {GMRES_TOL}")
     if launches["laplace_slp"] <= 0:
         raise RuntimeError("the Poisson solve launched no laplace_slp kernel")
+    report_backend("poisson", "dense", setup_s, first_s, warm, run)
     # the gradient at the merged shape, charged with the solve's own sigma_g
     gq = merged_sigma_g(solver, f) * solver.grid_src_w
     grad_merged = (solver.grid_src_x, solver.grid_src_y, gq,
@@ -630,6 +803,16 @@ def poisson_phase(dev, K, counters):
                   lambda sx, sy, w, tx, ty: bound_ms(
                       "laplace_grad", sx.shape[0], tx.shape[0]),
                   what="launches above (merged, radial)")
+    # the fft grid backend (the default) on the same collection
+    from ipde_tpu_torch.solvers.bie import DirichletBIE
+    from ipde_tpu_torch.solvers.scalar import PoissonSolver
+    fft_launches, e = scalar_fft_run(
+        "poisson", lambda: PoissonSolver(ebdyc), DirichletBIE, f, bc, sol,
+        TOL_SOLVE_ERR, counters, "laplace_slp", K.laplace_slp_apply, solver,
+        bie, (K, "laplace_slp_apply", K.laplace_slp_apply_plain, laplace_err,
+              lambda sx, sy, w, tx, ty: bound_ms(
+                  "laplace_slp", sx.shape[0], tx.shape[0])))
+    errs.append(e)
     print(f"# poisson phase {time.perf_counter() - t_phase:.2f} s",
           flush=True)
     T = merged[3].shape[0]
@@ -638,7 +821,8 @@ def poisson_phase(dev, K, counters):
     return [{"name": "laplace_slp", "route": "cuda",
              "source": "ipde_tpu_torch/csrc/laplace_slp.cu",
              "replaces": "ipde_tpu/ops/pallas_ds.py:469",
-             "launches": launches["laplace_slp"], "max_abs_err": max(errs),
+             "launches": launches["laplace_slp"] + fft_launches,
+             "max_abs_err": max(errs),
              "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
              "bound_by": by, "library_ms": None},
             {"name": "laplace_grad", "route": "cuda",
@@ -648,6 +832,74 @@ def poisson_phase(dev, K, counters):
              "max_abs_err": max(grad_errs), "ms": gms,
              "plain_ms": gplain_ms, "bound_ms": gbnd, "bound_by": gby,
              "library_ms": None}]
+
+
+def stokes_fft_run(SK, counters, dense_solver, dense_bie, fs, bcs):
+    """The fft grid backend of the Stokes problem on the dense problem's
+    collection, as scalar_fft_run: both Stokeslet evaluators held to the
+    dense kernel (u, v to 1e-10, p to 1e-11 of max(1, max|dense|)), the
+    solve's velocity and pressure errors, residual and stokes_slp launches,
+    and the solve's launches held with hold_fft_launches.  Returns that
+    run's launches and the interface launch's max abs difference from the
+    plain version."""
+    from ipde_tpu_torch.solvers.bie import StokesDirichletBIE
+    from ipde_tpu_torch.solvers.vector import StokesSolver
+    ebdyc = dense_solver.ebdyc
+    t0 = time.perf_counter()
+    solver = StokesSolver(ebdyc)
+    bie = StokesDirichletBIE(solver)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    if solver.grid_backend != "fft":
+        raise RuntimeError(f"stokes: the default grid backend is "
+                           f"{solver.grid_backend}, not fft")
+    phys = (dense_bie.phys_flat, dense_bie.phys_x, dense_bie.phys_y)
+    limits = (1e-10, 1e-10, 1e-11)
+    hold_evaluator("stokes [fft] merged sigma_g evaluator", solver.grid_eval,
+                   SK.stokes_slp_apply, (solver.grid_src_x, solver.grid_src_y),
+                   solver.grid_src_w, phys, limits,
+                   (dense_solver._dense_tx, dense_solver._dense_ty))
+    src = bie.src.dev(ebdyc.device)
+    hold_evaluator("stokes [fft] BIE evaluator", bie.grid_eval,
+                   SK.stokes_slp_apply, (src["x"], src["y"]), src["weights"],
+                   phys, limits, phys[1:])
+
+    def run():
+        (u, v, p), stats = solver.solve_with_stats(
+            *fs, tol=GMRES_TOL, maxiter=100, restart=30)
+        u, v, p = bie.apply_bc(u, v, p, *bcs)
+        torch.cuda.synchronize()
+        return (u, v, p), stats
+
+    ((u, v, p), stats), launches, first_s, warm = timed_runs(run, counters)
+    g = ebdyc.grid
+    vel_err = max(max(max_err(ebdyc, u, usol)), max(max_err(ebdyc, v, vsol)))
+    shift = float((p.grid.cpu().numpy() - psol(g.xg, g.yg))[ebdyc.phys]
+                  .mean())
+    p_err = max(max_err(ebdyc, p, psol, shift))
+    resid = stats["annular_residuals"][0]
+    print(f"# stokes [fft] solve: {stats['annular_iterations'][0]} GMRES "
+          f"iterations, residual {resid:.3e}, velocity error {vel_err:.4e}, "
+          f"pressure error {p_err:.3e} (mean shift {shift:.3e}), launches "
+          f"{launches}", flush=True)
+    if not (math.isfinite(vel_err) and vel_err < TOL_STOKES_VEL):
+        raise RuntimeError(f"stokes [fft] velocity error {vel_err:.4e} >= "
+                           f"{TOL_STOKES_VEL}")
+    if not (math.isfinite(p_err) and p_err < TOL_STOKES_P):
+        raise RuntimeError(f"stokes [fft] pressure error {p_err:.3e} >= "
+                           f"{TOL_STOKES_P}")
+    if not resid <= GMRES_TOL:
+        raise RuntimeError(f"stokes [fft] annular GMRES residual "
+                           f"{resid:.3e} > {GMRES_TOL}")
+    if launches["stokes_slp"] <= 0:
+        raise RuntimeError("the Stokes fft solve launched no stokes_slp "
+                           "kernel")
+    report_backend("stokes", "fft", setup_s, first_s, warm, run)
+    return launches["stokes_slp"], hold_fft_launches(
+        "stokes", run, ebdyc.all_interface_x_dev, SK, "stokes_slp_apply",
+        SK.stokes_slp_apply_plain, stokes_err,
+        lambda sx, sy, wfx, wfy, tx, ty: bound_ms("stokes_slp", sx.shape[0],
+                                                  tx.shape[0]))
 
 
 def gmres_floor(solver, fu, fv, tols=(1e-13, 3e-14)):
@@ -684,7 +936,8 @@ def stokes_phase(dev, SK, counters):
             tuple(map(as_dev, cloud(T, S, seed=6))))[0])
 
     t0 = time.perf_counter()
-    ebdyc, grid, (fu, fv), (bcu, bcv), solver, bie = build_stokes_problem()
+    ebdyc, grid, (fu, fv), (bcu, bcv), solver, bie = build_stokes_problem(
+        backend="dense")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     e0 = ebdyc.ebdys[0]
@@ -734,9 +987,8 @@ def stokes_phase(dev, SK, counters):
     p_err = max(max_err(ebdyc, p, psol, shift))
     iters = stats["annular_iterations"][0]
     resid = stats["annular_residuals"][0]
-    print(f"# stokes solve: first {first_s * 1e3:.1f} ms, warm median "
-          f"{statistics.median(warm) * 1e3:.1f} ms "
-          f"(runs {', '.join(f'{w * 1e3:.1f}' for w in warm)} ms), "
+    print(f"# stokes solve: first {first_s * 1e3:.1f} ms, warm "
+          f"{warm_text(warm)}, "
           f"{iters} GMRES iterations, residual {resid:.3e}, velocity error "
           f"{vel_err:.4e} (u grid {vel[0][0]:.3e} radial {vel[0][1]:.3e}, "
           f"v grid {vel[1][0]:.3e} radial {vel[1][1]:.3e}), pressure error "
@@ -753,6 +1005,7 @@ def stokes_phase(dev, SK, counters):
                            f"{GMRES_TOL}")
     if launches["stokes_slp"] <= 0:
         raise RuntimeError("the Stokes solve launched no stokes_slp kernel")
+    report_backend("stokes", "dense", setup_s, first_s, warm, run)
     time_launches("stokes_slp", SK.stokes_slp_apply,
                   record_launch_args(run, SK, "stokes_slp_apply"),
                   lambda sx, sy, wfx, wfy, tx, ty: bound_ms(
@@ -760,13 +1013,17 @@ def stokes_phase(dev, SK, counters):
     print("# stokes annular GMRES alone (maxiter 100, restart 30): "
           + "; ".join(f"tol {t:.0e}: {i} iterations, true residual {r:.3e}"
                       for t, i, r in gmres_floor(solver, fu, fv)), flush=True)
+    fft_launches, e = stokes_fft_run(SK, counters, solver, bie, (fu, fv),
+                                     (bcu, bcv))
+    errs.append(e)
     print(f"# stokes phase {time.perf_counter() - t_phase:.2f} s",
           flush=True)
     bnd, by = bound_ms("stokes_slp", S, T_merged)
     return {"name": "stokes_slp", "route": "cuda",
             "source": "ipde_tpu_torch/csrc/stokes_slp.cu",
             "replaces": "ipde_tpu/ops/pallas_ds.py:510",
-            "launches": launches["stokes_slp"], "max_abs_err": max(errs),
+            "launches": launches["stokes_slp"] + fft_launches,
+            "max_abs_err": max(errs),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None}
 
@@ -805,8 +1062,8 @@ def mh_phase(dev, K, counters):
     total_launches = 0
     for name, k, nb, M, bie_kind, limit in MH_CASES:
         t0 = time.perf_counter()
-        ebdyc, grid, f, bc, solver, bie = build_mh_problem(dev, k, nb, M,
-                                                           bie_kind)
+        ebdyc, grid, f, bc, solver, bie = build_mh_problem(
+            dev, k, nb, M, bie_kind, backend="dense")
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         e0 = ebdyc.ebdys[0]
@@ -854,9 +1111,8 @@ def mh_phase(dev, K, counters):
         err = max(grid_err, rad_err)
         iters = stats["annular_iterations"][0]
         resid = stats["annular_residuals"][0]
-        print(f"# {name} solve: first {first_s * 1e3:.1f} ms, warm median "
-              f"{statistics.median(warm) * 1e3:.1f} ms "
-              f"(runs {', '.join(f'{w * 1e3:.1f}' for w in warm)} ms), "
+        print(f"# {name} solve: first {first_s * 1e3:.1f} ms, warm "
+              f"{warm_text(warm)}, "
               f"{iters} GMRES iterations, residual {resid:.3e}, max error "
               f"{err:.3e} (grid {grid_err:.3e}, radial {rad_err:.3e}; limit "
               f"{limit:.3g}), launches {launches}", flush=True)
@@ -867,11 +1123,30 @@ def mh_phase(dev, K, counters):
                                f"> {GMRES_TOL}")
         if launches["mh_slp"] <= 0:
             raise RuntimeError(f"the {name} solve launched no mh_slp kernel")
+        report_backend(name, "dense", setup_s, first_s, warm, run)
         time_launches(f"mh_slp {name}", K.mh_slp_apply,
                       record_launch_args(run, K, "mh_slp_apply"),
                       lambda sx, sy, w, tx, ty, k: mh_bound_ms(sx, sy, tx, ty,
                                                                k))
         total_launches += launches["mh_slp"]
+        if bie_kind == "dirichlet":
+            # the fft grid backend (the default) on the same collection; the
+            # k = 100 Neumann problem stays dense-only here (its host setup
+            # alone is over a minute; tests/test_torch_grid_eval_slices.py
+            # holds the fft branch of NeumannBIE on the CPU)
+            from ipde_tpu_torch.solvers.bie import DirichletBIE
+            from ipde_tpu_torch.solvers.scalar import ModifiedHelmholtzSolver
+            n, e = scalar_fft_run(
+                name, lambda: ModifiedHelmholtzSolver(ebdyc, k=k),
+                DirichletBIE, f, bc, mh_sol, limit, counters, "mh_slp",
+                lambda sx, sy, q, tx, ty: K.mh_slp_apply(sx, sy, q, tx, ty,
+                                                         k),
+                solver, bie, (K, "mh_slp_apply", K.mh_slp_apply_plain,
+                              laplace_err,
+                              lambda sx, sy, w, tx, ty, k: mh_bound_ms(
+                                  sx, sy, tx, ty, k)))
+            total_launches += n
+            errs.append(e)
         if entry is None:      # the kernels line times the k = 2 merged apply
             entry = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bnd,
                      "bound_by": by}

@@ -222,6 +222,14 @@ class EmbeddedBoundaryCollection:
         self._phys_extremes = pts
         return pts
 
+    def phys_bounds(self):
+        """((x0, x1), (y0, y1)): the bounding box of the physical grid
+        points, the targets whose FFT grid evaluator values are used."""
+        px = self.grid.xg[self.phys]
+        py = self.grid.yg[self.phys]
+        return ((float(px.min()), float(px.max())),
+                (float(py.min()), float(py.max())))
+
     # ------------------------------------------------------------------
     # interpolation operations (device)
     # ------------------------------------------------------------------

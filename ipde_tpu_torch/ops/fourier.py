@@ -1,9 +1,10 @@
 """Fourier transforms and spectral operators on torch.fft (complex128).
 
 The box solve's 2D transform (``FourierPlan2D``, with batched stacks of
-fields), the 1D last-axis derivative (``FourierPlan1D``) and the annular
-solvers' tangential plan (``tan_rfft`` / ``tan_irfft`` / ``tan_deriv`` along
-the last axis) with the frequency helpers.  Reference semantics:
+fields, and the half-spectrum forms the free-space grid evaluators use),
+the 1D last-axis derivative (``FourierPlan1D``) and the annular solvers'
+tangential plan (``tan_rfft`` / ``tan_irfft`` / ``tan_deriv`` along the last
+axis) with the frequency helpers.  Reference semantics:
 ipde/utilities.py:78-124 (Nyquist handling).
 """
 
@@ -73,6 +74,27 @@ class FourierPlan2D:
         """Real parts (B, nx, ny) of the inverse transforms of B spectra,
         one batched transform."""
         return torch.fft.ifft2(torch.stack(list(cs))).real
+
+    def rfft2(self, x: torch.Tensor) -> torch.Tensor:
+        """Half spectrum (..., nx//2 + 1, ny) of a real (..., mx, my) field,
+        mx <= nx and my <= ny, the missing tail taken as zeros (the padded
+        free-space evaluators spread their sources into a prefix block).
+        The FIRST axis is the halved one, rows kx = 0..nx/2, as in
+        ipde_tpu.ops.fourier.FourierPlan2D.rfft2 (torch.fft.rfft2 halves
+        the last): the evaluators' symbols are laid out for it.  A leading
+        batch dimension transforms a stack of fields in one call (ipde_tpu's
+        rfft2_stack)."""
+        return torch.fft.fft(torch.fft.rfft(x, n=self.nx, dim=-2), n=self.ny,
+                             dim=-1)
+
+    def irfft2_real_corner(self, c: torch.Tensor, nx_out: int, ny_out: int,
+                           nx0: int = 0, ny0: int = 0) -> torch.Tensor:
+        """The window [nx0:nx0 + nx_out, ny0:ny0 + ny_out] of the real
+        (..., nx, ny) field whose ``rfft2`` half spectrum is c; the second
+        pass runs on the ny_out columns of the window only.  Batched like
+        rfft2 (ipde_tpu's irfft2_real_corner_stack)."""
+        z = torch.fft.ifft(c, dim=-1)[..., ny0:ny0 + ny_out]
+        return torch.fft.irfft(z, n=self.nx, dim=-2)[..., nx0:nx0 + nx_out, :]
 
 
 class TanPlan:

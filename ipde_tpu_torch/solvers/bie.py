@@ -3,8 +3,11 @@
 After the inhomogeneous solve, the PDE residual is a homogeneous solution
 determined by a dense BIE on the true boundaries (reference: done in the
 example drivers, e.g. examples/interior_poisson.py:84-92).  The BIE matrix is
-assembled and inverted on the host at setup; the solve-time path is matmuls
-plus dense layer evaluations in the CUDA kernel.
+assembled and inverted on the host at setup; the solve-time path is matmuls,
+the field on the grid (the solver's FFT evaluator over the BIE's own QFS
+sources with ``grid_backend="fft"``, the CUDA kernel at every physical point
+with ``"dense"``) and dense layer evaluations onto the radial grids in the
+CUDA kernel.
 
 Dirichlet representation: u_H = sum_j DLP_j[tau_j], collocated on every
 boundary with the one-sided limit taken from the physical side; for Stokes
@@ -44,13 +47,20 @@ class _ScalarBIE:
 
     def _make_targets(self, ebdyc, dev):
         """The stratified radial plans [target ebdy i][source boundary j]
-        of ``self.src_list`` and the physical grid points (pna +
-        in-annulus)."""
+        of ``self.src_list``, and the grid targets: the FFT evaluator over
+        all of ``self.src_list`` (grid_backend "fft"), or the physical grid
+        points (pna + in-annulus) for the kernel ("dense")."""
         self.radial_plans = [
             [StratifiedRadialApply(src, e.radial_x, e.radial_y,
                                    k_density=ej.bdy.N // 2, device=dev)
              for src, ej in zip(self.src_list, ebdyc)]
             for e in ebdyc]
+        self.grid_eval = None
+        if self.solver.grid_backend == "fft":
+            self.grid_eval = self.solver._make_grid_evaluator(
+                np.concatenate([s.x for s in self.src_list]),
+                np.concatenate([s.y for s in self.src_list]))
+            return
         phys = ebdyc.phys
         phys_x = torch.as_tensor(ebdyc.grid.xg[phys], device=dev)
         phys_y = torch.as_tensor(ebdyc.grid.yg[phys], device=dev)
@@ -68,13 +78,19 @@ class _ScalarBIE:
         ``self.src_list[j]`` at all physical grid points and every radial
         grid."""
         solver = self.solver
-        grid_vals = torch.zeros_like(self.phys_x)
-        for src, sig in zip(self.src_list, sigmas):
-            grid_vals = grid_vals + solver._apply(src, sig, self.phys_x,
-                                                  self.phys_y)
-        new_grid = ue.grid.reshape(-1).index_add(0, self.phys_flat,
-                                                 grid_vals)\
-            .reshape(ue.grid.shape)
+        if self.grid_eval is not None:
+            phi = self.grid_eval(torch.cat([
+                sig * src.dev(sig.device)["weights"]
+                for src, sig in zip(self.src_list, sigmas)]))
+            new_grid = ue.grid + torch.where(self.ebdyc.phys_dev, phi, 0.0)
+        else:
+            grid_vals = torch.zeros_like(self.phys_x)
+            for src, sig in zip(self.src_list, sigmas):
+                grid_vals = grid_vals + solver._apply(src, sig, self.phys_x,
+                                                      self.phys_y)
+            new_grid = ue.grid.reshape(-1).index_add(0, self.phys_flat,
+                                                     grid_vals)\
+                .reshape(ue.grid.shape)
         new_radials = list(ue.radials)
         for j, sig in enumerate(sigmas):
             for i in range(len(new_radials)):
@@ -241,11 +257,17 @@ class StokesDirichletBIE:
                               build_u2s=False, device=dev)
         self.radial_plan = StratifiedRadialApply(
             self.src, e.radial_x, e.radial_y, k_density=b.N // 2, device=dev)
-        # all physical grid points (pna + in-annulus)
-        phys = ebdyc.phys
-        self.phys_flat = torch.as_tensor(np.flatnonzero(phys), device=dev)
-        self.phys_x = torch.as_tensor(ebdyc.grid.xg[phys], device=dev)
-        self.phys_y = torch.as_tensor(ebdyc.grid.yg[phys], device=dev)
+        self.grid_eval = None
+        if solver.grid_backend == "fft":
+            self.grid_eval = solver._make_grid_evaluator(self.src.x,
+                                                         self.src.y)
+        else:
+            # all physical grid points (pna + in-annulus)
+            phys = ebdyc.phys
+            self.phys_flat = torch.as_tensor(np.flatnonzero(phys),
+                                             device=dev)
+            self.phys_x = torch.as_tensor(ebdyc.grid.xg[phys], device=dev)
+            self.phys_y = torch.as_tensor(ebdyc.grid.yg[phys], device=dev)
 
     def apply_bc(self, u, v, p, bc_u, bc_v):
         """Correct (u, v, p) to satisfy the velocity boundary conditions."""
@@ -257,16 +279,21 @@ class StokesDirichletBIE:
         sig = self.qfs([self.Ainv @ rhs])
         d = self.src.dev(self.ebdyc.device)
         sN = self.src.N
+        wfx, wfy = sig[:sN] * d["weights"], sig[sN:] * d["weights"]
         # evaluate onto all physical grid points and the radial grid
-        gu, gv, gp = sk.stokes_slp_apply(
-            d["x"], d["y"], sig[:sN] * d["weights"], sig[sN:] * d["weights"],
-            self.phys_x, self.phys_y)
-        ru, rv, rp = self.radial_plan.apply(
+        if self.grid_eval is not None:
+            phys = self.ebdyc.phys_dev
+            grids = [f.grid + torch.where(phys, g, 0.0)
+                     for f, g in zip((u, v, p), self.grid_eval(wfx, wfy))]
+        else:
+            grids = [f.grid.reshape(-1).index_add(0, self.phys_flat, g)
+                     .reshape(f.grid.shape)
+                     for f, g in zip((u, v, p), sk.stokes_slp_apply(
+                         d["x"], d["y"], wfx, wfy, self.phys_x,
+                         self.phys_y))]
+        radials = self.radial_plan.apply(
             lambda sx, sy, ws, f, tx, ty: sk.stokes_slp_apply(
                 sx, sy, sig[:sN][::f] * ws, sig[sN:][::f] * ws, tx, ty),
             n_out=3)
-        return tuple(
-            EmbeddedFunction(
-                f.grid.reshape(-1).index_add(0, self.phys_flat, g)
-                .reshape(f.grid.shape), [f.radials[0] + r])
-            for f, g, r in ((u, gu, ru), (v, gv, rv), (p, gp, rp)))
+        return tuple(EmbeddedFunction(g, [f.radials[0] + r])
+                     for f, g, r in zip((u, v, p), grids, radials))

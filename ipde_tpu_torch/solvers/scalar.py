@@ -12,7 +12,8 @@ modified_helmholtz.py):
      interface mismatch -> SLP/DLP densities -> QFS effective densities
      sigma_g (grid side) and sigma_r (radial side),
   4. one global layer-potential evaluation of all sigma_g onto the
-     grid-not-in-annulus points and all interfaces (CUDA kernel),
+     grid-not-in-annulus points (see Grid backend below) and all
+     interfaces (CUDA kernel),
   5. per boundary 'correct': subtract own contribution, u2s re-match,
      evaluate total sigma_r onto the radial grid (CUDA kernel),
   6. radial->grid merge, mask to the physical region.
@@ -22,11 +23,11 @@ Derivation of the interface densities: continuity and C^1 matching of
     dlp = uc|_ifc     slp = d(ur)/dn - d(uc)/dn
 with both negated for exterior boundaries.
 
-Grid backend: only ``grid_backend="dense"`` exists in this package for now,
-and it is the default: step 4 evaluates the merged sigma_g directly at every
-physical-not-in-annulus grid point.  The free-space FFT evaluator of
-ipde_tpu (``grid_backend="fft"``, ipde_tpu/ops/grid_eval.py) is not ported
-yet (ROADMAP.md, Queue 1) and raises.
+Grid backend (step 4), as in ipde_tpu: ``grid_backend="fft"``, the
+default, evaluates the merged sigma_g on the whole grid with the free-space
+FFT evaluator (``ops/grid_eval.py``) and at the interfaces with the CUDA
+kernel; ``"dense"`` sums it directly at every physical-not-in-annulus grid
+point and the interfaces in one kernel launch.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
 from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import kernels, singular as sq
+from ipde_tpu_torch.ops.grid_eval import FreespaceGridEvaluator
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 from ipde_tpu_torch.qfs.qfs import QFSEvaluator, laplace_qfs, mh_qfs
 from ipde_tpu_torch.solvers.annular_scalar import (
@@ -124,24 +126,20 @@ class _ScalarHelper:
 class ScalarSolver:
     """Shared orchestration; subclasses bind the PDE (symbol, kernel, QFS).
 
-    grid_backend: only 'dense' (the direct kernel sum onto every
-    physical-not-in-annulus grid point) is ported; 'fft' raises
-    NotImplementedError.  solver_type: only 'spectral' is ported.
-    Reference analogue: grid_backend selection in
+    grid_backend: 'fft' (the default) evaluates the sigma_g layer potential
+    on the grid with the free-space FFT evaluator; 'dense' uses the direct
+    kernel sum onto every physical-not-in-annulus grid point.  solver_type:
+    only 'spectral' is ported.  Reference analogue: grid_backend selection in
     ipde/solvers/multi_boundary/poisson.py:39-64.
     """
 
     def __init__(self, ebdyc: EmbeddedBoundaryCollection,
-                 grid_backend: str = "dense",
+                 grid_backend: str = "fft",
                  solver_type: str = "spectral"):
         self.ebdyc = ebdyc
         if ebdyc.grid is None:
             raise ValueError("collection has no registered grid")
-        if grid_backend == "fft":
-            raise NotImplementedError(
-                "grid_backend='fft' (FreespaceGridEvaluator) is not ported "
-                "to ipde_tpu_torch yet: ROADMAP.md Queue 1 item 10")
-        if grid_backend != "dense":
+        if grid_backend not in ("fft", "dense"):
             raise ValueError(grid_backend)
         if solver_type == "fourth":
             raise NotImplementedError(
@@ -163,17 +161,31 @@ class ScalarSolver:
         self.grid_src_w = f64(np.concatenate(
             [h.grid_source.weights for h in self.helpers]))
         self._symbol = f64(self._grid_symbol())
-        # the grid targets of the merged apply in spatial order (compact
-        # warps for the Yukawa kernel), with the flat indices their values
-        # are scattered to in the same order; the interface points follow
-        order = kernels.spatial_order(ebdyc.pna_x_dev, ebdyc.pna_y_dev,
-                                      cell=min(ebdyc.grid.xh, ebdyc.grid.yh))
-        self._pna_flat = ebdyc.pna_flat_dev[order]
-        self._dense_tx = torch.cat([ebdyc.pna_x_dev[order],
-                                    ebdyc.all_interface_x_dev])
-        self._dense_ty = torch.cat([ebdyc.pna_y_dev[order],
-                                    ebdyc.all_interface_y_dev])
+        if grid_backend == "fft":
+            self.grid_eval = self._make_grid_evaluator(
+                np.concatenate([h.grid_source.x for h in self.helpers]),
+                np.concatenate([h.grid_source.y for h in self.helpers]))
+            self._pna_mask = torch.as_tensor(ebdyc.phys_not_in_annulus,
+                                             device=self.device)
+        else:
+            # the grid targets of the merged apply in spatial order (compact
+            # warps for the Yukawa kernel), with the flat indices their
+            # values are scattered to in the same order; the interface
+            # points follow
+            order = kernels.spatial_order(
+                ebdyc.pna_x_dev, ebdyc.pna_y_dev,
+                cell=min(ebdyc.grid.xh, ebdyc.grid.yh))
+            self._pna_flat = ebdyc.pna_flat_dev[order]
+            self._dense_tx = torch.cat([ebdyc.pna_x_dev[order],
+                                        ebdyc.all_interface_x_dev])
+            self._dense_ty = torch.cat([ebdyc.pna_y_dev[order],
+                                        ebdyc.all_interface_y_dev])
         self.iteration_counts = []
+
+    def _make_grid_evaluator(self, gx, gy) -> FreespaceGridEvaluator:
+        """The FFT evaluator of this PDE's kernel for sources (gx, gy),
+        truncated for the physical points."""
+        raise NotImplementedError
 
     # -- PDE bindings (overridden) -----------------------------------------
     def _qfs_alpha(self, ebdy):
@@ -258,11 +270,18 @@ class ScalarSolver:
             print("annular iterations:", self.iteration_counts)
         # global layer evaluation onto pna + interfaces
         sigma_g = torch.cat(sig_gs)
-        out = self._apply_merged(sigma_g, self._dense_tx, self._dense_ty)
-        n_pna = ebdyc.pna_x.size
-        uc = uc.reshape(-1).index_add(0, self._pna_flat, out[:n_pna])\
-            .reshape(ebdyc.grid.shape)
-        bus = ebdyc.v2l(out[n_pna:])
+        if self.grid_backend == "fft":
+            phi = self.grid_eval(sigma_g * self.grid_src_w)
+            uc = uc + torch.where(self._pna_mask, phi, 0.0)
+            bus = ebdyc.v2l(self._apply_merged(
+                sigma_g, ebdyc.all_interface_x_dev,
+                ebdyc.all_interface_y_dev))
+        else:
+            out = self._apply_merged(sigma_g, self._dense_tx, self._dense_ty)
+            n_pna = ebdyc.pna_x.size
+            uc = uc.reshape(-1).index_add(0, self._pna_flat, out[:n_pna])\
+                .reshape(ebdyc.grid.shape)
+            bus = ebdyc.v2l(out[n_pna:])
         # per-boundary radial corrections
         urs = [h.correct(self, ur, sg, sr, bu)
                for h, ur, sg, sr, bu in
@@ -289,6 +308,13 @@ class PoissonSolver(ScalarSolver):
         if ebdyc.bumpy is None:
             ebdyc.ready_bump()
         super().__init__(ebdyc, **kw)
+
+    def _make_grid_evaluator(self, gx, gy):
+        return FreespaceGridEvaluator(self.ebdyc.grid, gx, gy,
+                                      kernel="laplace",
+                                      target_bounds=self.ebdyc.phys_bounds(),
+                                      target_hull=self.ebdyc.phys_extremes(),
+                                      device=self.device)
 
     def _make_annular_solver(self, geom):
         return AnnularPoissonSolver(geom, device=self.device)
@@ -342,6 +368,13 @@ class ModifiedHelmholtzSolver(ScalarSolver):
         (ipde_tpu/solvers/scalar.py ModifiedHelmholtzSolver._qfs_alpha)."""
         return float(np.clip(1.5 + 0.5 * self.k * 2.0 * np.pi
                              / ebdy.bdy.N, 1.5, 3.0))
+
+    def _make_grid_evaluator(self, gx, gy):
+        return FreespaceGridEvaluator(self.ebdyc.grid, gx, gy,
+                                      kernel="yukawa", kappa=self.k,
+                                      target_bounds=self.ebdyc.phys_bounds(),
+                                      target_hull=self.ebdyc.phys_extremes(),
+                                      device=self.device)
 
     def _make_annular_solver(self, geom):
         return AnnularModifiedHelmholtzSolver(geom, k=self.k,

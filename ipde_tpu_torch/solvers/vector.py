@@ -12,14 +12,17 @@ ipde_tpu.solvers.vector:
      radial solution; SLP density = traction jump, DLP density = grid
      velocity; QFS -> sigma_g (grid side), sigma_r (radial side),
   4. one Stokeslet evaluation (u, v, p) of sigma_g onto every
-     physical-not-in-annulus grid point and the interface (CUDA kernel),
+     physical-not-in-annulus grid point (``grid_backend="fft"``, the
+     default: the free-space FFT evaluator of ``ops/grid_eval.py`` on the
+     whole grid; ``"dense"``: the CUDA kernel) and the interface (CUDA
+     kernel),
   5. the radial correction (sigma_r onto the radial grid, CUDA kernel), the
      interface pressure reconciliation and the radial->grid merge.
 
-Ported: one interior boundary, ``grid_backend="dense"`` (the default) and
-``solver_type="spectral"``.  ``grid_backend="fft"``, ``solver_type="fourth"``
-and any other collection (several boundaries, an exterior one) raise
-NotImplementedError naming their ROADMAP.md items.
+Ported: one interior boundary, both grid backends and
+``solver_type="spectral"``.  ``solver_type="fourth"`` and any other
+collection (several boundaries, an exterior one) raise NotImplementedError
+naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import stokes_kernels as sk
 from ipde_tpu_torch.ops.fourier import FourierPlan1D
+from ipde_tpu_torch.ops.grid_eval import StokesFreespaceGridEvaluator
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 from ipde_tpu_torch.qfs.qfs import QFSEvaluator
 from ipde_tpu_torch.solvers.annular_stokes import AnnularStokesSolver
@@ -178,22 +182,19 @@ class StokesSolver:
     """(u, v, p) = solver(fu, fv) with fu, fv EmbeddedFunctions; tensors on
     the collection's device.
 
-    grid_backend: only 'dense' (the direct Stokeslet sum onto every
-    physical-not-in-annulus grid point) is ported; 'fft' raises.
+    grid_backend: 'fft' (the default) evaluates the merged sigma_g
+    Stokeslet field on the grid with the free-space FFT evaluator; 'dense'
+    sums it directly onto every physical-not-in-annulus grid point.
     solver_type: only 'spectral' is ported; 'fourth' raises.  The
     collection must hold one interior boundary.
     """
 
     def __init__(self, ebdyc: EmbeddedBoundaryCollection,
-                 grid_backend: str = "dense", solver_type: str = "spectral"):
+                 grid_backend: str = "fft", solver_type: str = "spectral"):
         self.ebdyc = ebdyc
         if ebdyc.grid is None:
             raise ValueError("collection has no registered grid")
-        if grid_backend == "fft":
-            raise NotImplementedError(
-                "grid_backend='fft' (StokesFreespaceGridEvaluator) is not "
-                "ported to ipde_tpu_torch yet: ROADMAP.md Queue 1 item 10")
-        if grid_backend != "dense":
+        if grid_backend not in ("fft", "dense"):
             raise ValueError(grid_backend)
         if solver_type == "fourth":
             raise NotImplementedError(
@@ -226,11 +227,25 @@ class StokesSolver:
         self.ilap = f64(1.0 / lap)
         self.ikx = 1j * ebdyc.kx_dev
         self.iky = 1j * ebdyc.ky_dev
-        self._dense_tx = torch.cat([ebdyc.pna_x_dev,
-                                    ebdyc.all_interface_x_dev])
-        self._dense_ty = torch.cat([ebdyc.pna_y_dev,
-                                    ebdyc.all_interface_y_dev])
+        if grid_backend == "fft":
+            self.grid_eval = self._make_grid_evaluator(
+                np.concatenate([h.grid_source.x for h in self.helpers]),
+                np.concatenate([h.grid_source.y for h in self.helpers]))
+            self._pna_mask = torch.as_tensor(ebdyc.phys_not_in_annulus,
+                                             device=self.device)
+        else:
+            self._dense_tx = torch.cat([ebdyc.pna_x_dev,
+                                        ebdyc.all_interface_x_dev])
+            self._dense_ty = torch.cat([ebdyc.pna_y_dev,
+                                        ebdyc.all_interface_y_dev])
         self.iteration_counts = []
+
+    def _make_grid_evaluator(self, gx, gy) -> StokesFreespaceGridEvaluator:
+        """The Stokeslet FFT evaluator for sources (gx, gy), truncated for
+        the physical grid points."""
+        return StokesFreespaceGridEvaluator(
+            self.ebdyc.grid, gx, gy, target_bounds=self.ebdyc.phys_bounds(),
+            target_hull=self.ebdyc.phys_extremes(), device=self.device)
 
     def __call__(self, fu: EmbeddedFunction, fv: EmbeddedFunction,
                  tol: float = 1e-12, maxiter: int = 200, restart: int = 50,
@@ -282,16 +297,26 @@ class StokesSolver:
         # merged sigma_g evaluation onto pna + interfaces
         wfx = torch.cat([s[:n] for s, n in zip(sig_gs, self.src_Ns)])
         wfy = torch.cat([s[n:] for s, n in zip(sig_gs, self.src_Ns)])
-        gu, gv, gp = sk.stokes_slp_apply(
-            self.grid_src_x, self.grid_src_y, wfx * self.grid_src_w,
-            wfy * self.grid_src_w, self._dense_tx, self._dense_ty)
-        n_pna = ebdyc.pna_x.size
-        idx = ebdyc.pna_flat_dev
-        uc, vc, pc = (c.reshape(-1).index_add(0, idx, g[:n_pna])
-                      .reshape(c.shape) for c, g in ((uc, gu), (vc, gv),
-                                                     (pc, gp)))
+        wfx, wfy = wfx * self.grid_src_w, wfy * self.grid_src_w
+        if self.grid_backend == "fft":
+            uc, vc, pc = (c + torch.where(self._pna_mask, g, 0.0)
+                          for c, g in zip((uc, vc, pc),
+                                          self.grid_eval(wfx, wfy)))
+            _, _, gip = sk.stokes_slp_apply(
+                self.grid_src_x, self.grid_src_y, wfx, wfy,
+                ebdyc.all_interface_x_dev, ebdyc.all_interface_y_dev)
+        else:
+            gu, gv, gp = sk.stokes_slp_apply(
+                self.grid_src_x, self.grid_src_y, wfx, wfy, self._dense_tx,
+                self._dense_ty)
+            n_pna = ebdyc.pna_x.size
+            idx = ebdyc.pna_flat_dev
+            uc, vc, pc = (c.reshape(-1).index_add(0, idx, g[:n_pna])
+                          .reshape(c.shape) for c, g in ((uc, gu), (vc, gv),
+                                                         (pc, gp)))
+            gip = gp[n_pna:]
         # grid-side pressure at the interfaces (FFT solution + sigma_g field)
-        bpl = v2l(bps + gp[n_pna:])
+        bpl = v2l(bps + gip)
         out = [h.correct(uvp, sr)
                for h, uvp, sr in zip(self.helpers, uvps, sig_rs)]
         urs = [o[0] for o in out]

@@ -338,7 +338,8 @@ def _build(k, neumann):
     jue = jb.apply_bc(jue_raw, jbc)
     tc = load_collection(jc.save(), "cpu")
     tc.generate_grid(bh)
-    ts = PoissonSolver(tc) if k is None else ModifiedHelmholtzSolver(tc, k=k)
+    ts = (PoissonSolver(tc, grid_backend="dense") if k is None
+          else ModifiedHelmholtzSolver(tc, k=k, grid_backend="dense"))
     tb = (NeumannBIE if neumann else DirichletBIE)(ts)
     tbc = BoundaryFunction([torch.tensor(np.asarray(v)) for v in jbc.values])
     return dict(jc=jc, js=js, jb=jb, jue_raw=jue_raw, jue=jue, jst=jst, tc=tc,

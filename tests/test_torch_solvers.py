@@ -10,6 +10,7 @@ Tolerances are relative to the largest value compared: 1e-13 for single
 operator applies (the same float64 sums in another order); the looser ones
 are stated where they are used."""
 
+import inspect
 import subprocess
 import sys
 import time
@@ -38,7 +39,7 @@ from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import kernels
 from ipde_tpu_torch.solvers import annular_scalar as ann
 from ipde_tpu_torch.solvers.bie import DirichletBIE
-from ipde_tpu_torch.solvers.scalar import PoissonSolver
+from ipde_tpu_torch.solvers.scalar import PoissonSolver, ScalarSolver
 
 ROOT = Path(__file__).resolve().parents[1]
 NB, M = 128, 8
@@ -91,7 +92,7 @@ def problem():
     jue = jb.apply_bc(jue_raw, jbc)
     tc = load_collection(jc.save(), "cpu")
     tc.generate_grid(bh)
-    ts = PoissonSolver(tc)
+    ts = PoissonSolver(tc, grid_backend="dense")
     tb = DirichletBIE(ts)
     return dict(jc=jc, js=js, jb=jb, jf=jf, jbc=jbc, jue_raw=jue_raw,
                 jue=jue, jst=jst, tc=tc, ts=ts, tb=tb,
@@ -196,8 +197,12 @@ def test_whole_slice_matches_reference(problem):
 
 
 def test_fft_backend_not_ported(problem):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoissonSolver(problem["tc"], grid_backend="fft")
+    """The grid backend defaults to "fft", as in ipde_tpu; an unknown one
+    raises ValueError."""
+    assert inspect.signature(ScalarSolver).parameters["grid_backend"]\
+        .default == "fft"
+    with pytest.raises(ValueError, match="spectral"):
+        PoissonSolver(problem["tc"], grid_backend="spectral")
 
 
 def test_port_imports_no_jax():

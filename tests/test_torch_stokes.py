@@ -17,6 +17,7 @@ Pallas kernel (near-coincident rows have |p| ~ 1e2); bit-equal for host
 numpy forms; 1e-13 relative to the largest value for single operator
 applies (the same float64 sums in another order)."""
 
+import inspect
 import numpy as np
 import pytest
 import torch
@@ -283,7 +284,7 @@ def problem():
     juvp = jb.apply_bc(*jraw, jbu, jbv)
     tc = load_collection(jc.save(), "cpu")
     tc.generate_grid(bh)
-    ts = StokesSolver(tc)
+    ts = StokesSolver(tc, grid_backend="dense")
     tb = StokesDirichletBIE(ts)
     return dict(jc=jc, js=js, jb=jb, jraw=jraw, jst=jst, juvp=juvp, tc=tc,
                 ts=ts, tb=tb, tfu=EmbeddedFunction.load(jfu.save(), "cpu"),
@@ -451,8 +452,12 @@ def test_whole_slice_matches_reference(problem):
 
 def test_unported_options_raise(problem):
     tc = problem["tc"]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 10"):
-        StokesSolver(tc, grid_backend="fft")
+    # the grid backend defaults to "fft", as in ipde_tpu; an unknown one
+    # raises ValueError
+    assert inspect.signature(StokesSolver).parameters["grid_backend"].default \
+        == "fft"
+    with pytest.raises(ValueError, match="spectral"):
+        StokesSolver(tc, grid_backend="spectral")
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
         StokesSolver(tc, solver_type="fourth")
     e = tc.ebdys[0]
@@ -497,7 +502,9 @@ def fv_f(x, y):
 def test_port_mms_nb600():
     """tests/test_interior_stokes.py's case (star(600, a=0.15, f=5), M=16)
     on the port alone, with its asserts, at tol=1e-12 (the port's GMRES
-    checks its true residual, whose float64 floor is above 1e-13 here)."""
+    checks its true residual, whose float64 floor is above 1e-13 here).
+    Dense grid backend: on the CPU it is the cheaper one at this size, and
+    tests/test_torch_grid_eval_slices.py holds the fft slice."""
     nb, Mr = 600, 16
     bdy = star(nb, a=0.15, f=5)
     bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / Mr)
@@ -505,7 +512,7 @@ def test_port_mms_nb600():
         [EmbeddedBoundary(bdy, True, Mr, bh, qfs_tolerance=1e-14)],
         device="cpu")
     ebdyc.generate_grid(bh)
-    solver = StokesSolver(ebdyc)
+    solver = StokesSolver(ebdyc, grid_backend="dense")
     bie = StokesDirichletBIE(solver)
     fu = EmbeddedFunction.from_function(ebdyc, fu_f)
     fv = EmbeddedFunction.from_function(ebdyc, fv_f)

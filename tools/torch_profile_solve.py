@@ -2,6 +2,7 @@
 
     python3 tools/torch_profile_solve.py [--pde poisson|stokes|mh]
                                          [--k 2|100] [--nb N] [--M M]
+                                         [--backend fft|dense]
                                          [--reps 3] [--trace trace.json]
 
 Builds a problem of chip_smoke.py (``--pde poisson``: the interior Poisson
@@ -10,7 +11,8 @@ bench.py's tier-1 interior Stokes problem, star(nb, a=0.2, f=5) on a
 grid_target=1024 box, the same defaults; ``--pde mh``: the interior modified
 Helmholtz problem of chip_smoke.MH_CASES with that ``--k``: k=2 Dirichlet,
 star(800, a=0.2, f=5), M=20, or k=100 Neumann, star(600, a=0.2, f=5),
-M=24), warms it up, then:
+M=24) with grid backend ``--backend`` (default fft, the solvers'
+default), warms it up, then:
   * times the two halves of a solve (solve_with_stats and apply_bc) on the
     host clock around torch.cuda.synchronize;
   * records the (targets, sources) of every dense-kernel launch of one
@@ -70,6 +72,7 @@ def main():
                     help="the modified Helmholtz problem (--pde mh)")
     ap.add_argument("--nb", type=int)
     ap.add_argument("--M", type=int)
+    ap.add_argument("--backend", choices=("fft", "dense"), default="fft")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--trace", help="write the chrome trace here")
     args = ap.parse_args()
@@ -81,7 +84,8 @@ def main():
     if args.pde == "stokes":
         args.nb, args.M = args.nb or 1200, args.M or 16
         ebdyc, grid, (fu, fv), (bcu, bcv), solver, bie = \
-            build_stokes_problem(dev, args.nb, args.M)
+            build_stokes_problem(dev, args.nb, args.M,
+                                 backend=args.backend)
         first = lambda: solver.solve_with_stats(fu, fv, **kw)[0]  # noqa: E731
         second = lambda uvp: bie.apply_bc(*uvp, bcu, bcv)  # noqa: E731
         module, wrapper, kname = stokes_kernels, "stokes_slp_apply", \
@@ -91,12 +95,12 @@ def main():
             _, k, nb, M, bie_kind, _ = mh_cases[args.k]
             args.nb, args.M = args.nb or nb, args.M or M
             ebdyc, grid, f, bc, solver, bie = build_mh_problem(
-                dev, k, args.nb, args.M, bie_kind)
+                dev, k, args.nb, args.M, bie_kind, backend=args.backend)
             wrapper, kname = "mh_slp_apply", "mh_slp"
         else:
             args.nb, args.M = args.nb or 1200, args.M or 16
-            ebdyc, grid, f, bc, solver, bie = build_problem(dev, args.nb,
-                                                            args.M)
+            ebdyc, grid, f, bc, solver, bie = build_problem(
+                dev, args.nb, args.M, backend=args.backend)
             wrapper, kname = "laplace_slp_apply", "laplace_slp"
         first = lambda: solver.solve_with_stats(f, **kw)[0]  # noqa: E731
         second = lambda ue: bie.apply_bc(ue, bc)  # noqa: E731
@@ -123,6 +127,7 @@ def main():
         halves()
     runs = [halves() for _ in range(5)]
     label = f"mh k={args.k:g}" if args.pde == "mh" else args.pde
+    label += f" [{args.backend}]"
     print(f"# {label} nb={args.nb} M={args.M} grid {grid.shape}: "
           f"solve_with_stats median "
           f"{statistics.median(r[0] for r in runs) * 1e3:.3f} ms, apply_bc "

@@ -45,6 +45,18 @@ class AnnularGeometry:
         self.approx_psi2 = approx_r + self.rv2
         self.modes = np.arange(self.nk, dtype=np.float64)
 
+    def fits(self, ebdy) -> bool:
+        """Whether an annular solver built for this geometry can serve the
+        embedded boundary ``ebdy`` (helper reuse under moving boundaries):
+        the same (n, M) and radial bounds, and a radius within 0.8-1.25 of
+        the one its circle-approximation preconditioner was built for
+        (reference analogue: ipde/solvers/multi_boundary/
+        modified_helmholtz.py:13-39)."""
+        return ((self.n, self.M) == (ebdy.bdy.N, ebdy.M)
+                and abs(self.lb - ebdy.lb) <= 1e-12
+                and abs(self.ub - ebdy.ub) <= 1e-12
+                and 0.8 <= ebdy.approximate_radius / self.approx_r <= 1.25)
+
 
 class AnnularMetric:
     """True metric psi = speed * (1 + r * curvature) on the three radial grids.

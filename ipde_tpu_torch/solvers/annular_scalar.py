@@ -14,11 +14,16 @@ product with the (nk, M, M) inverses built on the host.
 Residual/unknown layout: u is (M, n) nodal values (row 0 = r=lb side);
 residual rows = [PDE rows (M-2) ; lbc row ; ubc row], matching the RHS
 [R02 @ f ; g_lb ; g_ub].
+
+Several annuli of one (M, n) solve as one batch (``batched_annular_solve``):
+their operator bundles are stacked on a leading axis and one lockstep GMRES
+(``ops.gmres.batched_gmres``) applies all B matvecs and preconditioners in
+each call, with one host sync per iteration for the batch.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -26,11 +31,13 @@ import torch
 from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
 from ipde_tpu_torch.ops.fourier import (TanPlan, make_tan_plan, tan_deriv,
                                         tan_irfft, tan_rfft)
-from ipde_tpu_torch.ops.gmres import gmres
+from ipde_tpu_torch.ops.gmres import batched_gmres, gmres
 
 
 class AnnularOps(NamedTuple):
-    """Operator bundle for the annular scalar solve, on one device."""
+    """Operator bundle for the annular scalar solve, on one device; in a
+    batch (``stack_ops``) every tensor has a leading boundary axis and
+    helm_k2 is a (B, 1, 1) tensor."""
     D01: torch.Tensor
     D12: torch.Tensor
     R01: torch.Tensor
@@ -46,9 +53,30 @@ class AnnularOps(NamedTuple):
     helm_k2: float           # k^2
 
 
+def stack_ops(ops_list: Sequence[NamedTuple]) -> NamedTuple:
+    """One bundle of B same-shape bundles (AnnularOps or StokesOps): each
+    tensor stacked on a new leading axis (a vector as (B, 1, n), so that it
+    broadcasts along rows as before), each float as a (B, 1, 1) tensor, the
+    tangential plan shared."""
+    first = ops_list[0]
+    out = []
+    for name, v in zip(first._fields, first):
+        vals = [getattr(o, name) for o in ops_list]
+        if isinstance(v, torch.Tensor):
+            t = torch.stack(vals)
+            out.append(t[:, None] if v.ndim == 1 else t)
+        elif isinstance(v, float):
+            out.append(torch.tensor(vals, dtype=torch.float64,
+                                    device=first.D01.device)[:, None, None])
+        else:
+            out.append(v)
+    return type(first)(*out)
+
+
 def _matvec(ops: AnnularOps, u_flat: torch.Tensor, M: int,
             n: int) -> torch.Tensor:
-    u = u_flat.reshape(M, n)
+    """A u for flat u of shape (M n,), or (B, M n) with batched ops."""
+    u = u_flat.reshape(*u_flat.shape[:-1], M, n)
     du = ops.D01 @ u
     term1 = ops.D12 @ (ops.psi1 * du)
     ut = tan_deriv(u, ops.tan)
@@ -56,17 +84,52 @@ def _matvec(ops: AnnularOps, u_flat: torch.Tensor, M: int,
     term2 = ops.R12 @ tan_deriv(w, ops.tan)
     lu = (term1 + term2) * ops.inv_psi2
     top = ops.helm_k2 * (ops.R02 @ u) - lu
-    return torch.cat([top, ops.row_lb @ u, ops.row_ub @ u], dim=0).reshape(-1)
+    return torch.cat([top, ops.row_lb @ u, ops.row_ub @ u],
+                     dim=-2).reshape(u_flat.shape)
 
 
 def _precond(ops: AnnularOps, r_flat: torch.Tensor, M: int,
              n: int) -> torch.Tensor:
-    c = tan_rfft(r_flat.reshape(M, n), ops.tan)            # (M, nk)
+    """The per-mode preconditioner on flat r of shape (M n,) or (B, M n)."""
+    c = tan_rfft(r_flat.reshape(*r_flat.shape[:-1], M, n), ops.tan)
     # out[i, k] = sum_j Kinv[k, i, j] c[j, k]: one batched product over the
     # modes, on the (re, im) pairs of c
-    cr = torch.view_as_real(c).permute(1, 0, 2)             # (nk, M, 2)
-    out = torch.bmm(ops.Kinv, cr).permute(1, 0, 2).contiguous()
-    return tan_irfft(torch.view_as_complex(out), ops.tan).reshape(-1)
+    cr = torch.view_as_real(c).transpose(-3, -2)            # (nk, M, 2)
+    out = torch.matmul(ops.Kinv, cr).transpose(-3, -2).contiguous()
+    return tan_irfft(torch.view_as_complex(out),
+                     ops.tan).reshape(r_flat.shape)
+
+
+def check_converged(label: str, residual: float, iterations: int,
+                    tol: float, maxiter: int, restart: int):
+    """Raise when GMRES ended with its true residual above tol."""
+    if not residual <= tol:
+        raise RuntimeError(
+            f"{label} GMRES did not converge: residual {residual:.3e} > tol "
+            f"{tol:.1e} after {iterations} iterations (maxiter {maxiter}, "
+            f"restart {restart})")
+
+
+def batched_annular_solve(solvers, metrics, rhss, tol: float = 1e-12,
+                          maxiter: int = 200, restart: int = 40):
+    """Solve B same-shape annular problems in one lockstep GMRES.
+
+    solvers/metrics are per boundary (one (M, n) for all); rhss is a list of
+    (M, n) right-hand sides already in residual layout (``build_rhs``).
+    Returns (list of (M, n) solutions, {'iterations': [B ints],
+    'residual': [B floats]}); raises as ``solve_with_stats`` does when a
+    system's true residual ends above tol."""
+    ops = stack_ops([s.make_ops(m) for s, m in zip(solvers, metrics)])
+    M, n = solvers[0].M, solvers[0].n
+    res = batched_gmres(lambda v: _matvec(ops, v, M, n),
+                        torch.stack([r.reshape(-1) for r in rhss]),
+                        precond=lambda v: _precond(ops, v, M, n), tol=tol,
+                        maxiter=maxiter, restart=restart)
+    for s, it, r in zip(solvers, res.iterations, res.residual):
+        s.iterations_last_call = it
+        check_converged("annular", r, it, tol, maxiter, restart)
+    return ([x.reshape(M, n) for x in res.x],
+            {"iterations": res.iterations, "residual": res.residual})
 
 
 class AnnularScalarSolver:
@@ -160,11 +223,8 @@ class AnnularScalarSolver:
         if verbose:
             print(f"annular GMRES: {res.iterations} iters, "
                   f"resid {res.residual:.2e}")
-        if not res.residual <= tol:
-            raise RuntimeError(
-                f"annular GMRES did not converge: residual "
-                f"{res.residual:.3e} > tol {tol:.1e} after {res.iterations} "
-                f"iterations (maxiter {maxiter}, restart {restart})")
+        check_converged("annular", res.residual, res.iterations, tol,
+                        maxiter, restart)
         return res.x.reshape(M, n), {"iterations": res.iterations,
                                      "residual": res.residual}
 

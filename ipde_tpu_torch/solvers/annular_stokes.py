@@ -18,6 +18,9 @@ psi = s(1 + r kappa), h_r = 1, h_t = psi, and d_r psi = s kappa.
 Unknown vector layout (flat): [ur (M, n) ; ut (M, n) ; p (M-1, n)].
 Residual layout: [ur-eq (M-2) ; ur BCs (2) ; ut-eq (M-2) ; ut BCs (2) ;
 div-eq (M-1, with the pressure-mean pin added)].
+
+Several annuli of one (M, n) solve as one batch (``batched_stokes_solve``),
+as in annular_scalar: stacked operator bundles, one lockstep GMRES.
 """
 
 from __future__ import annotations
@@ -30,11 +33,14 @@ import torch
 from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
 from ipde_tpu_torch.ops.fourier import (TanPlan, make_tan_plan, tan_deriv,
                                         tan_irfft, tan_rfft)
-from ipde_tpu_torch.ops.gmres import gmres
+from ipde_tpu_torch.ops.gmres import batched_gmres, gmres
+from ipde_tpu_torch.solvers.annular_scalar import check_converged, stack_ops
 
 
 class StokesOps(NamedTuple):
-    """Operator bundle for the annular Stokes solve, on one device."""
+    """Operator bundle for the annular Stokes solve, on one device; in a
+    batch (``stack_ops``) every tensor has a leading boundary axis and mu
+    is a (B, 1, 1) tensor."""
     D01: torch.Tensor
     D12: torch.Tensor
     R01: torch.Tensor
@@ -57,19 +63,22 @@ class StokesOps(NamedTuple):
 
 
 def _matvec(ops: StokesOps, v: torch.Tensor, M: int, n: int) -> torch.Tensor:
+    """A v for flat v of shape ((3M-1) n,), or (B, (3M-1) n) with batched
+    ops."""
     NU = M * n
-    ur = v[:NU].reshape(M, n)
-    ut = v[NU:2 * NU].reshape(M, n)
-    p = v[2 * NU:].reshape(M - 1, n)
+    lead = v.shape[:-1]
+    ur = v[..., :NU].reshape(*lead, M, n)
+    ut = v[..., NU:2 * NU].reshape(*lead, M, n)
+    p = v[..., 2 * NU:].reshape(*lead, M - 1, n)
     # one batched transform for the (ur, ut, p) tangential derivatives
-    d_all = tan_deriv(torch.cat([ur, ut, p], dim=0), ops.tan)
-    dur = d_all[:M]
-    dut = d_all[M:2 * M]
-    dp = d_all[2 * M:]
+    d_all = tan_deriv(torch.cat([ur, ut, p], dim=-2), ops.tan)
+    dur = d_all[..., :M, :]
+    dut = d_all[..., M:2 * M, :]
+    dp = d_all[..., 2 * M:, :]
     # one batched transform for the two Laplacian inner derivatives
     w_r = (ops.R01 @ dur) * ops.inv_psi1
     w_t = (ops.R01 @ dut) * ops.inv_psi1
-    dw = tan_deriv(torch.cat([w_r, w_t], dim=0), ops.tan)
+    dw = tan_deriv(torch.cat([w_r, w_t], dim=-2), ops.tan)
     Mm1 = M - 1
 
     def scalar_lap(u, dwk):
@@ -77,8 +86,8 @@ def _matvec(ops: StokesOps, v: torch.Tensor, M: int, n: int) -> torch.Tensor:
         t2 = ops.R12 @ dwk
         return (t1 + t2) * ops.inv_psi2
 
-    lap_ur = scalar_lap(ur, dw[:Mm1])
-    lap_ut = scalar_lap(ut, dw[Mm1:])
+    lap_ur = scalar_lap(ur, dw[..., :Mm1, :])
+    lap_ut = scalar_lap(ut, dw[..., Mm1:, :])
     W1r = ops.R02 @ ur
     W1t = ops.R02 @ ut
     fr = (ops.mu * (-lap_ur + (ops.R02 @ dut) * ops.combo1
@@ -91,20 +100,40 @@ def _matvec(ops: StokesOps, v: torch.Tensor, M: int, n: int) -> torch.Tensor:
     # pressure pins: the mean (mode 0) and the tangential Nyquist mode of
     # the constant-in-r pressure are invisible to D12/Dt (Dt zeroes the
     # Nyquist derivative); pin both so the system is nonsingular
-    fp = fp + (ops.VI1_row0 @ p).mean()
-    fp = fp + (ops.VI1_row0 @ (p * ops.alt)).mean() * ops.alt
-    return torch.cat([fr.reshape(-1), (ops.row_lb @ ur).reshape(-1),
-                      (ops.row_ub @ ur).reshape(-1), ft.reshape(-1),
-                      (ops.row_lb @ ut).reshape(-1),
-                      (ops.row_ub @ ut).reshape(-1), fp.reshape(-1)])
+    mean = lambda a: a.mean(dim=(-2, -1), keepdim=True)  # noqa: E731
+    fp = fp + mean(ops.VI1_row0 @ p)
+    fp = fp + mean(ops.VI1_row0 @ (p * ops.alt)) * ops.alt
+    return torch.cat([a.reshape(*lead, -1) for a in (
+        fr, ops.row_lb @ ur, ops.row_ub @ ur, ft, ops.row_lb @ ut,
+        ops.row_ub @ ut, fp)], dim=-1)
 
 
 def _precond(ops: StokesOps, v: torch.Tensor, M: int,
              n: int) -> torch.Tensor:
-    c = tan_rfft(v.reshape(3 * M - 1, n), ops.tan)        # (3M-1, nk)
+    """The per-mode preconditioner on flat v, unbatched or (B, ...)."""
+    c = tan_rfft(v.reshape(*v.shape[:-1], 3 * M - 1, n), ops.tan)
     # out[i, k] = sum_j Kinv[k, i, j] c[j, k]: one batched complex product
-    out = torch.bmm(ops.Kinv, c.T.unsqueeze(2)).squeeze(2).T
-    return tan_irfft(out, ops.tan).reshape(-1)
+    out = torch.matmul(ops.Kinv, c.transpose(-2, -1)[..., None])[..., 0]
+    return tan_irfft(out.transpose(-2, -1), ops.tan).reshape(v.shape)
+
+
+def batched_stokes_solve(solvers, metrics, rhss, tol: float = 1e-12,
+                         maxiter: int = 200, restart: int = 50):
+    """Solve B same-shape annular Stokes problems in one lockstep GMRES.
+
+    rhss: flat right-hand sides from AnnularStokesSolver.build_rhs.  Returns
+    (list of (ur, ut, p_full) triples, {'iterations': [B ints], 'residual':
+    [B floats]}); raises as ``solve_with_stats`` does."""
+    ops = stack_ops([s.make_ops(m) for s, m in zip(solvers, metrics)])
+    M, n = solvers[0].M, solvers[0].n
+    res = batched_gmres(lambda v: _matvec(ops, v, M, n), torch.stack(rhss),
+                        precond=lambda v: _precond(ops, v, M, n), tol=tol,
+                        maxiter=maxiter, restart=restart)
+    for s, it, r in zip(solvers, res.iterations, res.residual):
+        s.iterations_last_call = it
+        check_converged("annular Stokes", r, it, tol, maxiter, restart)
+    return ([s.split(x) for s, x in zip(solvers, res.x)],
+            {"iterations": res.iterations, "residual": res.residual})
 
 
 class AnnularStokesSolver:
@@ -112,8 +141,8 @@ class AnnularStokesSolver:
 
     solve(metric, fr, ft, lbc_r, lbc_t, ubc_r, ubc_t) -> (ur, ut, p) with p
     prolonged to the M-node radial grid.  Tensors live on ``device``.  The
-    multi-boundary batched solve and the float32 / mixed-precision
-    preconditioner paths of ipde_tpu are not ported.
+    float32 / mixed-precision preconditioner paths of ipde_tpu are not
+    ported (float64 is native on the GPU).
     """
 
     def __init__(self, geom: AnnularGeometry, mu: float = 1.0, *, device):
@@ -240,13 +269,14 @@ class AnnularStokesSolver:
         if verbose:
             print(f"annular Stokes GMRES: {res.iterations} iters, "
                   f"resid {res.residual:.2e}")
-        if not res.residual <= tol:
-            raise RuntimeError(
-                f"annular Stokes GMRES did not converge: residual "
-                f"{res.residual:.3e} > tol {tol:.1e} after {res.iterations} "
-                f"iterations (maxiter {maxiter}, restart {restart})")
+        check_converged("annular Stokes", res.residual, res.iterations, tol,
+                        maxiter, restart)
+        return self.split(res.x), {"iterations": res.iterations,
+                                   "residual": res.residual}
+
+    def split(self, x):
+        """(ur, ut, p_full) of a flat solution, p prolonged to M nodes."""
+        M, n = self.M, self.n
         NU = M * n
-        x = res.x
         p_full = self.P10 @ x[2 * NU:].reshape(M - 1, n)
-        return ((x[:NU].reshape(M, n), x[NU:2 * NU].reshape(M, n), p_full),
-                {"iterations": res.iterations, "residual": res.residual})
+        return x[:NU].reshape(M, n), x[NU:2 * NU].reshape(M, n), p_full

@@ -30,6 +30,26 @@ from ipde_tpu_torch.solvers.scalar import ModifiedHelmholtzSolver, ScalarSolver
 from ipde_tpu_torch.solvers.vector import StokesSolver, stokes_qfs
 
 
+def _radial_plans(src_list, ebdyc, dev):
+    """The stratified radial plans [target ebdy i][source boundary j] of the
+    BIE's effective sources.  Only an interior boundary's own plan
+    subsamples its sources.  The plan's bound takes the density's modes
+    above the boundary's band limit (N / 2) as negligible, but a BIE density
+    on the 3 N-point QFS source curve carries them at up to 2.5e-6 of its
+    largest mode (the three-body Stokes problem of
+    examples/stokes_refinement.py at nb=700).  The interior boundary's own
+    rows tolerate that; another boundary's rows and an inclusion's do not:
+    ipde_tpu subsamples them all and reaches a velocity error of 7.1e-6 on
+    that problem at M=16 (CPU), 6.3e-9 with every source taken
+    (tools/ipde_tpu_three_body_stokes.py)."""
+    return [[StratifiedRadialApply(src, e.radial_x, e.radial_y,
+                                   k_density=ej.bdy.N // 2,
+                                   max_stride=16 if e is ej and e.interior
+                                   else 1, device=dev)
+             for src, ej in zip(src_list, ebdyc)]
+            for e in ebdyc]
+
+
 def _invert_system(blocks, offs) -> np.ndarray:
     """Assemble the block BIE matrix on the host and invert it (LAPACK)."""
     n = offs[-1]
@@ -46,15 +66,11 @@ class _ScalarBIE:
     there through the solver's kernel."""
 
     def _make_targets(self, ebdyc, dev):
-        """The stratified radial plans [target ebdy i][source boundary j]
-        of ``self.src_list``, and the grid targets: the FFT evaluator over
+        """The radial plans of ``self.src_list`` (``_radial_plans``), and
+        the grid targets: the FFT evaluator over
         all of ``self.src_list`` (grid_backend "fft"), or the physical grid
         points (pna + in-annulus) for the kernel ("dense")."""
-        self.radial_plans = [
-            [StratifiedRadialApply(src, e.radial_x, e.radial_y,
-                                   k_density=ej.bdy.N // 2, device=dev)
-             for src, ej in zip(self.src_list, ebdyc)]
-            for e in ebdyc]
+        self.radial_plans = _radial_plans(self.src_list, ebdyc, dev)
         self.grid_eval = None
         if self.solver.grid_backend == "fft":
             self.grid_eval = self.solver._make_grid_evaluator(
@@ -232,13 +248,16 @@ class NeumannBIE(_ScalarBIE):
 
 
 class StokesDirichletBIE:
-    """Dense velocity-Dirichlet BIE for a one-boundary StokesSolver; its
+    """Dense velocity-Dirichlet BIE for a StokesSolver's boundary
+    collection (one interior boundary and any number of inclusions); its
     tensors live on the collection's device.
 
     Representation (reference: examples/multi_stokes_for_paper.py:117-190):
-    the (interior) boundary carries DLP[tau] with the normal-flux rank
-    completion; the one-sided limit is taken from the physical side.  The
-    block is built and inverted on the host; the QFS forms are DLP-only.
+    the interior boundary carries DLP[tau] with the normal-flux rank
+    completion, an inclusion (SLP + DLP)[tau] of one density; the one-sided
+    limits are taken from the physical side.  The blocks are built and
+    inverted on the host (2N rows per boundary); the QFS forms are DLP-only
+    for the interior boundary and [SLP, DLP] for an inclusion.
     """
 
     def __init__(self, solver: StokesSolver):
@@ -246,21 +265,41 @@ class StokesDirichletBIE:
         ebdyc = solver.ebdyc
         self.ebdyc = ebdyc
         dev = ebdyc.device
-        (e,) = ebdyc.ebdys    # StokesSolver takes one interior boundary
-        b = e.bdy
-        A = (sk.stokes_dlp_self(b) - 0.5 * np.eye(2 * b.N)
-             + sk.stokes_pressure_fix(b, b.normal_x, b.normal_y))
-        self.Ainv = torch.as_tensor(_invert_system([[A]], [0, 2 * b.N]),
-                                    device=dev)
-        self.src = e.qfs_source_for_side("bdy", interior_eval=True)
-        self.qfs = stokes_qfs(b, self.src, True, slp=False, dlp=True,
-                              build_u2s=False, device=dev)
-        self.radial_plan = StratifiedRadialApply(
-            self.src, e.radial_x, e.radial_y, k_density=b.N // 2, device=dev)
+
+        def blk(ei, ej):
+            bi, bj = ei.bdy, ej.bdy
+            if ei is ej:
+                if ej.interior:
+                    return (sk.stokes_dlp_self(bj) - 0.5 * np.eye(2 * bj.N)
+                            + sk.stokes_pressure_fix(bj, bj.normal_x,
+                                                     bj.normal_y))
+                return (sk.stokes_dlp_self(bj) + sk.stokes_slp_self(bj)
+                        + 0.5 * np.eye(2 * bj.N))
+            if ej.interior:
+                return (sk.stokes_dlp_naive(bj, bi.x, bi.y)
+                        + sk.stokes_pressure_fix(bj, bi.normal_x,
+                                                 bi.normal_y))
+            return (sk.stokes_dlp_naive(bj, bi.x, bi.y)
+                    + sk.stokes_slp_naive(bj, bi.x, bi.y))
+
+        offs = np.concatenate([[0], np.cumsum([2 * e.bdy.N
+                                               for e in ebdyc])])
+        blocks = [[blk(ei, ej) for ej in ebdyc] for ei in ebdyc]
+        self.Ainv = torch.as_tensor(_invert_system(blocks, offs), device=dev)
+        self.offs = offs
+        # per-boundary QFS, matched from the physical side
+        self.src_list = [e.qfs_source_for_side("bdy", interior_eval=e.interior)
+                         for e in ebdyc]
+        self.qfs_list = [stokes_qfs(e.bdy, src, e.interior,
+                                    slp=not e.interior, dlp=True,
+                                    build_u2s=False, device=dev)
+                         for e, src in zip(ebdyc, self.src_list)]
+        self.radial_plans = _radial_plans(self.src_list, ebdyc, dev)
         self.grid_eval = None
         if solver.grid_backend == "fft":
-            self.grid_eval = solver._make_grid_evaluator(self.src.x,
-                                                         self.src.y)
+            self.grid_eval = solver._make_grid_evaluator(
+                np.concatenate([s.x for s in self.src_list]),
+                np.concatenate([s.y for s in self.src_list]))
         else:
             # all physical grid points (pna + in-annulus)
             phys = ebdyc.phys
@@ -272,28 +311,46 @@ class StokesDirichletBIE:
     def apply_bc(self, u, v, p, bc_u, bc_v):
         """Correct (u, v, p) to satisfy the velocity boundary conditions."""
         solver = self.solver
+        ebdyc = self.ebdyc
         bu = solver.get_boundary_values(u)
         bv = solver.get_boundary_values(v)
-        rhs = torch.cat([bc_u.values[0] - bu.values[0],
-                         bc_v.values[0] - bv.values[0]])
-        sig = self.qfs([self.Ainv @ rhs])
-        d = self.src.dev(self.ebdyc.device)
-        sN = self.src.N
-        wfx, wfy = sig[:sN] * d["weights"], sig[sN:] * d["weights"]
-        # evaluate onto all physical grid points and the radial grid
+        rhs = torch.cat([torch.cat([cu - gu, cv - gv]) for cu, cv, gu, gv in
+                         zip(bc_u.values, bc_v.values, bu.values, bv.values)])
+        tau = self.Ainv @ rhs
+        sigmas = []
+        for i, (e, q) in enumerate(zip(ebdyc, self.qfs_list)):
+            t = tau[self.offs[i]:self.offs[i + 1]]
+            sigmas.append(q([t]) if e.interior else q([t, t]))
+        # weighted force components per source curve
+        forces = []
+        for src, sig in zip(self.src_list, sigmas):
+            w = src.dev(ebdyc.device)["weights"]
+            forces.append((sig[:src.N] * w, sig[src.N:] * w))
+        # onto all physical grid points and every radial grid
         if self.grid_eval is not None:
-            phys = self.ebdyc.phys_dev
+            phys = ebdyc.phys_dev
+            fields = self.grid_eval(torch.cat([f[0] for f in forces]),
+                                    torch.cat([f[1] for f in forces]))
             grids = [f.grid + torch.where(phys, g, 0.0)
-                     for f, g in zip((u, v, p), self.grid_eval(wfx, wfy))]
+                     for f, g in zip((u, v, p), fields)]
         else:
+            vals = [torch.zeros_like(self.phys_x) for _ in range(3)]
+            for src, (wfx, wfy) in zip(self.src_list, forces):
+                d = src.dev(ebdyc.device)
+                vals = [a + b for a, b in zip(vals, sk.stokes_slp_apply(
+                    d["x"], d["y"], wfx, wfy, self.phys_x, self.phys_y))]
             grids = [f.grid.reshape(-1).index_add(0, self.phys_flat, g)
                      .reshape(f.grid.shape)
-                     for f, g in zip((u, v, p), sk.stokes_slp_apply(
-                         d["x"], d["y"], wfx, wfy, self.phys_x,
-                         self.phys_y))]
-        radials = self.radial_plan.apply(
-            lambda sx, sy, ws, f, tx, ty: sk.stokes_slp_apply(
-                sx, sy, sig[:sN][::f] * ws, sig[sN:][::f] * ws, tx, ty),
-            n_out=3)
-        return tuple(EmbeddedFunction(g, [f.radials[0] + r])
-                     for f, g, r in zip((u, v, p), grids, radials))
+                     for f, g in zip((u, v, p), vals)]
+        radials = [list(f.radials) for f in (u, v, p)]
+        for j, (src, sig) in enumerate(zip(self.src_list, sigmas)):
+            sN = src.N
+            for i in range(len(ebdyc.ebdys)):
+                upd = self.radial_plans[i][j].apply(
+                    lambda sx, sy, ws, f, tx, ty: sk.stokes_slp_apply(
+                        sx, sy, sig[:sN][::f] * ws, sig[sN:][::f] * ws, tx,
+                        ty),
+                    n_out=3)
+                for r, du in zip(radials, upd):
+                    r[i] = r[i] + du
+        return tuple(EmbeddedFunction(g, r) for g, r in zip(grids, radials))

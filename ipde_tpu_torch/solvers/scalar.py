@@ -8,7 +8,8 @@ modified_helmholtz.py):
   1. periodic box solve of the rolled-off forcing (torch.fft + symbol),
   2. spectral interpolation of (u, ux, uy) to all interfaces (exact
      trigonometric evaluation of the mode array),
-  3. per boundary: annular strip solve with zero BCs (GMRES),
+  3. per boundary: annular strip solve with zero BCs (GMRES; one
+     lockstep GMRES over all boundaries when they share one (M, n)),
      interface mismatch -> SLP/DLP densities -> QFS effective densities
      sigma_g (grid side) and sigma_r (radial side),
   4. one global layer-potential evaluation of all sigma_g onto the
@@ -32,6 +33,8 @@ point and the interfaces in one kernel launch.
 
 from __future__ import annotations
 
+from typing import List, Optional
+
 import numpy as np
 import torch
 
@@ -44,20 +47,39 @@ from ipde_tpu_torch.ops.grid_eval import FreespaceGridEvaluator
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 from ipde_tpu_torch.qfs.qfs import QFSEvaluator, laplace_qfs, mh_qfs
 from ipde_tpu_torch.solvers.annular_scalar import (
-    AnnularModifiedHelmholtzSolver, AnnularPoissonSolver)
+    AnnularModifiedHelmholtzSolver, AnnularPoissonSolver,
+    batched_annular_solve)
+
+
+def _annular_donor(prev_helper, solver, ebdy):
+    """The previous helper's annular solver, if its geometry still fits
+    (``AnnularGeometry.fits``) and it solves the same PDE (the same
+    Helmholtz k).  The per-mode preconditioner is built from the circle
+    approximation; under moving-boundary regeneration (fixed h, M) only the
+    radius drifts, and the preconditioner stays effective for modest drift:
+    GMRES corrects the rest.  The true metric is rebuilt each step
+    regardless (ops are cached per AnnularMetric)."""
+    if prev_helper is None:
+        return None
+    a = prev_helper.annular_solver
+    if a.geom.fits(ebdy) and solver._annular_solver_signature() == (
+            type(a).__name__, a.helmholtz_k):
+        return a
+    return None
 
 
 class _ScalarHelper:
     """Per-boundary machinery: annular solver + QFS maps + estimator rows."""
 
-    def __init__(self, solver, ebdy: EmbeddedBoundary):
+    def __init__(self, solver, ebdy: EmbeddedBoundary, shared_annular=None):
         self.ebdy = ebdy
         self.interior = ebdy.interior
         dev = solver.device
         geom = AnnularGeometry(ebdy.bdy.N, ebdy.M, ebdy.lb, ebdy.ub,
                                ebdy.approximate_radius)
         self.geom = geom
-        self.annular_solver = solver._make_annular_solver(geom)
+        self.annular_solver = (shared_annular if shared_annular is not None
+                               else solver._make_annular_solver(geom))
         self.metric = AnnularMetric(ebdy.bdy.speed, ebdy.bdy.curvature, geom)
         ifc = ebdy.interface
         alpha = solver._qfs_alpha(ebdy)
@@ -100,6 +122,10 @@ class _ScalarHelper:
         sigma_g, sigma_r = self.densities(ur, bv, bx, by)
         return ur, sigma_g, sigma_r, stats
 
+    def annular_rhs(self, fr):
+        """The zero-BC annular right-hand side (batched path)."""
+        return self.annular_solver.build_rhs(fr, self.zero_bc, self.zero_bc)
+
     def densities(self, ur, bv, bx, by):
         """QFS effective densities from the annular solution + interface
         data (the non-GMRES half of solve_and_densities)."""
@@ -126,15 +152,20 @@ class _ScalarHelper:
 class ScalarSolver:
     """Shared orchestration; subclasses bind the PDE (symbol, kernel, QFS).
 
-    grid_backend: 'fft' (the default) evaluates the sigma_g layer potential
-    on the grid with the free-space FFT evaluator; 'dense' uses the direct
-    kernel sum onto every physical-not-in-annulus grid point.  solver_type:
-    only 'spectral' is ported.  Reference analogue: grid_backend selection in
+    The collection holds one interior boundary and any number of inclusions
+    (``interior=False``).  helpers: the helpers of a previous solver on
+    compatible geometry (same n, M, radial bounds, about the same radius):
+    their annular solvers and preconditioners are reused, the dominant
+    per-step setup cost of moving-boundary runs.  grid_backend: 'fft' (the
+    default) evaluates the sigma_g layer potential on the grid with the
+    free-space FFT evaluator; 'dense' uses the direct kernel sum onto every
+    physical-not-in-annulus grid point.  solver_type: only 'spectral' is
+    ported.  Reference analogue: grid_backend selection in
     ipde/solvers/multi_boundary/poisson.py:39-64.
     """
 
     def __init__(self, ebdyc: EmbeddedBoundaryCollection,
-                 grid_backend: str = "fft",
+                 helpers: Optional[List] = None, grid_backend: str = "fft",
                  solver_type: str = "spectral"):
         self.ebdyc = ebdyc
         if ebdyc.grid is None:
@@ -144,13 +175,17 @@ class ScalarSolver:
         if solver_type == "fourth":
             raise NotImplementedError(
                 "solver_type='fourth' is not ported to ipde_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 16)")
+                "(ROADMAP.md Queue 1 item 5)")
         if solver_type != "spectral":
             raise ValueError(solver_type)
         self.device = ebdyc.device
         self.grid_backend = grid_backend
         self.solver_type = solver_type
-        self.helpers = [_ScalarHelper(self, e) for e in ebdyc]
+        donors = list(helpers or [])
+        donors += [None] * (len(ebdyc.ebdys) - len(donors))
+        self.helpers = [
+            _ScalarHelper(self, e, shared_annular=_annular_donor(d, self, e))
+            for e, d in zip(ebdyc, donors)]
         # merged grid sources
         f64 = lambda a: torch.as_tensor(a, dtype=torch.float64,  # noqa: E731
                                         device=self.device)
@@ -194,6 +229,11 @@ class ScalarSolver:
         return None
 
     def _make_annular_solver(self, geom):
+        raise NotImplementedError
+
+    def _annular_solver_signature(self):
+        """(class name, Helmholtz k) of the annular solver the PDE binding
+        builds; the helper-reuse check (_annular_donor) compares it."""
         raise NotImplementedError
 
     def _make_qfs(self, curve, source, interior,
@@ -254,17 +294,38 @@ class ScalarSolver:
         bvl = ebdyc.v2l(vals[0])
         bxl = ebdyc.v2l(gxs[0])
         byl = ebdyc.v2l(gys[0])
-        # per-boundary annular solves + densities
-        urs, sig_gs, sig_rs, stats_list = [], [], [], []
-        for h, fr, bv, bx, by in zip(self.helpers, f.radials, bvl, bxl, byl):
-            ur, sg, sr, st = h.solve_and_densities(fr, bv, bx, by, tol,
-                                                   maxiter, restart)
-            urs.append(ur)
-            sig_gs.append(sg)
-            sig_rs.append(sr)
-            stats_list.append(st)
-        stats = {"annular_iterations": [s["iterations"] for s in stats_list],
-                 "annular_residuals": [s["residual"] for s in stats_list]}
+        # per-boundary annular solves + densities: one lockstep GMRES when
+        # every boundary has the same (M, n), else one after another
+        dims = {(h.annular_solver.M, h.annular_solver.n)
+                for h in self.helpers}
+        if len(self.helpers) > 1 and len(dims) == 1:
+            urs, bstats = batched_annular_solve(
+                [h.annular_solver for h in self.helpers],
+                [h.metric for h in self.helpers],
+                [h.annular_rhs(fr) for h, fr in zip(self.helpers, f.radials)],
+                tol, maxiter, restart)
+            for h, it in zip(self.helpers, bstats["iterations"]):
+                h.iterations_last_call = it
+            sig_gs, sig_rs = map(list, zip(*(
+                h.densities(ur, bv, bx, by)
+                for h, ur, bv, bx, by in zip(self.helpers, urs, bvl, bxl,
+                                             byl))))
+            stats = {"annular_iterations": bstats["iterations"],
+                     "annular_residuals": bstats["residual"]}
+        else:
+            urs, sig_gs, sig_rs, stats_list = [], [], [], []
+            for h, fr, bv, bx, by in zip(self.helpers, f.radials, bvl, bxl,
+                                         byl):
+                ur, sg, sr, st = h.solve_and_densities(fr, bv, bx, by, tol,
+                                                       maxiter, restart)
+                urs.append(ur)
+                sig_gs.append(sg)
+                sig_rs.append(sr)
+                stats_list.append(st)
+            stats = {"annular_iterations": [s["iterations"]
+                                            for s in stats_list],
+                     "annular_residuals": [s["residual"]
+                                           for s in stats_list]}
         self.iteration_counts = list(stats["annular_iterations"])
         if verbose:
             print("annular iterations:", self.iteration_counts)
@@ -318,6 +379,9 @@ class PoissonSolver(ScalarSolver):
 
     def _make_annular_solver(self, geom):
         return AnnularPoissonSolver(geom, device=self.device)
+
+    def _annular_solver_signature(self):
+        return ("AnnularPoissonSolver", 0.0)
 
     def _make_qfs(self, curve, source, interior, build_u2s: bool = True):
         return laplace_qfs(curve, source, interior, build_u2s=build_u2s,
@@ -379,6 +443,9 @@ class ModifiedHelmholtzSolver(ScalarSolver):
     def _make_annular_solver(self, geom):
         return AnnularModifiedHelmholtzSolver(geom, k=self.k,
                                               device=self.device)
+
+    def _annular_solver_signature(self):
+        return ("AnnularModifiedHelmholtzSolver", self.k)
 
     def _make_qfs(self, curve, source, interior, build_u2s: bool = True):
         return mh_qfs(curve, source, interior, self.k, build_u2s=build_u2s,

@@ -8,24 +8,31 @@ ipde_tpu.solvers.vector:
      (one batched torch.fft of the two forcing fields, one of (u, v, p)),
   2. values and gradients of (u, v, p) at the interface from one 3-field
      exact evaluation of the mode stack; the grid solution's traction there,
-  3. annular Stokes solve (zero velocity BCs), interface traction of the
-     radial solution; SLP density = traction jump, DLP density = grid
-     velocity; QFS -> sigma_g (grid side), sigma_r (radial side),
-  4. one Stokeslet evaluation (u, v, p) of sigma_g onto every
+  3. per boundary: annular Stokes solve (zero velocity BCs; one lockstep
+     GMRES over all boundaries when they share one (M, n)), interface
+     traction of the radial solution; SLP density = traction jump, DLP
+     density = grid velocity, both negated for an inclusion; QFS ->
+     sigma_g (grid side), sigma_r (radial side),
+  4. one Stokeslet evaluation (u, v, p) of the merged sigma_g onto every
      physical-not-in-annulus grid point (``grid_backend="fft"``, the
      default: the free-space FFT evaluator of ``ops/grid_eval.py`` on the
-     whole grid; ``"dense"``: the CUDA kernel) and the interface (CUDA
+     whole grid; ``"dense"``: the CUDA kernel) and all interfaces (CUDA
      kernel),
-  5. the radial correction (sigma_r onto the radial grid, CUDA kernel), the
-     interface pressure reconciliation and the radial->grid merge.
+  5. per boundary the radial correction: with several boundaries the
+     other boundaries' field at the interface (the merged field less its
+     own sigma_g's) is re-matched into sigma_r by the u2s map; sigma_r onto
+     the radial grid (CUDA kernel), the interface pressure reconciliation
+     per strip and the radial->grid merge.
 
-Ported: one interior boundary, both grid backends and
-``solver_type="spectral"``.  ``solver_type="fourth"`` and any other
-collection (several boundaries, an exterior one) raise NotImplementedError
-naming their ROADMAP.md items.
+Ported: one interior boundary plus any number of inclusions
+(``interior=False``), both grid backends, ``helpers=`` reuse and
+``solver_type="spectral"``.  ``solver_type="fourth"`` raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
+
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -39,7 +46,8 @@ from ipde_tpu_torch.ops.fourier import FourierPlan1D
 from ipde_tpu_torch.ops.grid_eval import StokesFreespaceGridEvaluator
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 from ipde_tpu_torch.qfs.qfs import QFSEvaluator
-from ipde_tpu_torch.solvers.annular_stokes import AnnularStokesSolver
+from ipde_tpu_torch.solvers.annular_stokes import (AnnularStokesSolver,
+                                                   batched_stokes_solve)
 
 
 def stokes_qfs(curve, source, interior: bool, slp: bool = True,
@@ -64,32 +72,46 @@ def stokes_qfs(curve, source, interior: bool, slp: bool = True,
                         build_u2s=build_u2s, device=device)
 
 
-class _StokesHelper:
-    """Per-boundary machinery of a one-boundary (interior) StokesSolver:
-    annular solver, QFS maps, estimator rows, radial derivative
-    operators."""
+def _stokes_donor(prev_helper, ebdy):
+    """The previous helper's annular Stokes solver, if its geometry still
+    fits (``AnnularGeometry.fits``)."""
+    if prev_helper is None or not prev_helper.annular_solver.geom.fits(ebdy):
+        return None
+    return prev_helper.annular_solver
 
-    def __init__(self, solver, ebdy: EmbeddedBoundary):
+
+class _StokesHelper:
+    """Per-boundary machinery of a StokesSolver: annular solver, QFS maps,
+    estimator rows, radial derivative operators; with ``multi`` (several
+    boundaries) also the values->source map of qfs_r and the own grid
+    source -> own interface Stokeslet matrix that the correction needs."""
+
+    def __init__(self, solver, ebdy: EmbeddedBoundary, multi: bool = True,
+                 shared_annular=None):
         self.ebdy = ebdy
         self.interior = ebdy.interior
         dev = solver.device
         geom = AnnularGeometry(ebdy.bdy.N, ebdy.M, ebdy.lb, ebdy.ub,
                                ebdy.approximate_radius)
-        self.annular_solver = AnnularStokesSolver(geom, mu=1.0, device=dev)
+        self.annular_solver = (
+            shared_annular if shared_annular is not None
+            else AnnularStokesSolver(geom, mu=1.0, device=dev))
         self.metric = AnnularMetric(ebdy.bdy.speed, ebdy.bdy.curvature, geom)
         ifc = ebdy.interface
         self.grid_source = ebdy.qfs_source_for_side(
             "interface", interior_eval=self.interior)
         self.radial_source = ebdy.qfs_source_for_side(
             "interface", interior_eval=not self.interior)
-        # the values->source maps and the own-source matrix serve only the
-        # multi-boundary correction, which is not ported
         self.qfs_g = stokes_qfs(ifc, self.grid_source, self.interior,
                                 build_u2s=False, device=dev)
         self.qfs_r = stokes_qfs(ifc, self.radial_source, not self.interior,
-                                build_u2s=False, device=dev)
+                                build_u2s=multi, device=dev)
         f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),  # noqa: E731
                                         device=dev)
+        # the one-boundary correction needs neither (the shortcut in
+        # `correct`)
+        self.own_src_to_ifc = (f64(sk.stokes_slp_naive(
+            self.grid_source, ifc.x, ifc.y)) if multi else None)
         # estimator rows + radial derivative machinery
         self.f_to_bdy = f64(ebdy.interp_f_to_bdy)
         self.f_to_ifc = f64(ebdy.interp_f_to_interface)
@@ -137,6 +159,12 @@ class _StokesHelper:
         return self.rt_to_uv(*self._traction_rt(Ur, Ut, p, self.f_to_bdy))
 
     # -- main per-boundary step ----------------------------------------------
+    def annular_rhs(self, fur, fvr):
+        """The flat zero-BC annular right-hand side (batched path)."""
+        z = self.zero_bc
+        return self.annular_solver.build_rhs(*self.uv_to_rt(fur, fvr), z, z,
+                                             z, z)
+
     def densities(self, uvp_rt, bu, bv, btxx, btxy, btyy):
         """QFS effective densities from the (r, t, p) annular solution +
         interface data (the non-GMRES half of solve_and_densities)."""
@@ -148,6 +176,8 @@ class _StokesHelper:
         rtx, rty = self.interface_traction_uv(ur, vr, pr)
         taus = torch.cat([rtx - btx, rty - bty])
         taud = torch.cat([bu, bv])
+        if not self.interior:
+            taus, taud = -taus, -taud
         sigma_g = self.qfs_g([taus, taud])
         sigma_r = self.qfs_r([taus, taud])
         return (ur, vr, pr), sigma_g, sigma_r
@@ -164,16 +194,24 @@ class _StokesHelper:
                                                btyy)
         return uvp, sigma_g, sigma_r, stats
 
-    def correct(self, uvp, sigma_r):
-        """Add the radial-side field of sigma_r on the radial grid (the
-        single-boundary shortcut of ipde_tpu's ``correct``: no other
-        boundary's field to fold in)."""
+    def correct(self, uvp, sigma_g, sigma_r, bu, bv, single: bool):
+        """Add the radial-side field on the radial grid.  With several
+        boundaries (not ``single``), the merged grid-side velocity (bu, bv)
+        at this interface less this boundary's own sigma_g field is the
+        other boundaries' field, re-matched into sigma_r by the u2s map."""
         ur, vr, pr = uvp
+        if single:
+            sigma_r_tot = sigma_r
+        else:
+            N = self.ebdy.bdy.N
+            w = self.own_src_to_ifc @ sigma_g
+            sigma_r_tot = sigma_r + self.qfs_r.u2s(
+                torch.cat([bu - w[:N], bv - w[N:]]))
         sN = self.radial_source.N
         du, dv, dp = self.radial_plan.apply(
             lambda sx, sy, ws, f, tx, ty: sk.stokes_slp_apply(
-                sx, sy, sigma_r[:sN][::f] * ws, sigma_r[sN:][::f] * ws,
-                tx, ty),
+                sx, sy, sigma_r_tot[:sN][::f] * ws,
+                sigma_r_tot[sN:][::f] * ws, tx, ty),
             n_out=3)
         return ur + du, vr + dv, pr + dp
 
@@ -182,15 +220,19 @@ class StokesSolver:
     """(u, v, p) = solver(fu, fv) with fu, fv EmbeddedFunctions; tensors on
     the collection's device.
 
-    grid_backend: 'fft' (the default) evaluates the merged sigma_g
-    Stokeslet field on the grid with the free-space FFT evaluator; 'dense'
-    sums it directly onto every physical-not-in-annulus grid point.
-    solver_type: only 'spectral' is ported; 'fourth' raises.  The
-    collection must hold one interior boundary.
+    The collection holds one interior boundary and any number of inclusions
+    (``interior=False``).  grid_backend: 'fft' (the default) evaluates the
+    merged sigma_g Stokeslet field on the grid with the free-space FFT
+    evaluator; 'dense' sums it directly onto every physical-not-in-annulus
+    grid point.  helpers: the helpers of a previous StokesSolver on
+    compatible geometry (same n, M, radial bounds, about the same radius):
+    their annular Stokes solvers and preconditioners are reused.
+    solver_type: only 'spectral' is ported; 'fourth' raises.
     """
 
     def __init__(self, ebdyc: EmbeddedBoundaryCollection,
-                 grid_backend: str = "fft", solver_type: str = "spectral"):
+                 grid_backend: str = "fft", helpers: Optional[List] = None,
+                 solver_type: str = "spectral"):
         self.ebdyc = ebdyc
         if ebdyc.grid is None:
             raise ValueError("collection has no registered grid")
@@ -199,20 +241,20 @@ class StokesSolver:
         if solver_type == "fourth":
             raise NotImplementedError(
                 "solver_type='fourth' is not ported to ipde_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 16)")
+                "(ROADMAP.md Queue 1 item 5)")
         if solver_type != "spectral":
             raise ValueError(solver_type)
-        if len(ebdyc.ebdys) != 1 or not ebdyc.ebdys[0].interior:
-            raise NotImplementedError(
-                "StokesSolver of ipde_tpu_torch takes one interior boundary; "
-                "multi-body and exterior Stokes are not ported yet "
-                "(ROADMAP.md Queue 1 item 15)")
         if ebdyc.bumpy is None:
             ebdyc.ready_bump()
         self.device = ebdyc.device
         self.grid_backend = grid_backend
         self.solver_type = solver_type
-        self.helpers = [_StokesHelper(self, e) for e in ebdyc]
+        multi = len(ebdyc.ebdys) > 1
+        donors = list(helpers or [])
+        donors += [None] * (len(ebdyc.ebdys) - len(donors))
+        self.helpers = [_StokesHelper(self, e, multi=multi,
+                                      shared_annular=_stokes_donor(d, e))
+                        for e, d in zip(ebdyc, donors)]
         f64 = lambda a: torch.as_tensor(a, dtype=torch.float64,  # noqa: E731
                                         device=self.device)
         self.grid_src_x = f64(np.concatenate(
@@ -278,19 +320,40 @@ class StokesSolver:
         btxys = gys[0] + gxs[1]
         btyys = 2 * gys[1] - bps
         v2l = ebdyc.v2l
-        per = zip(self.helpers, fu.radials, fv.radials, v2l(vals[0]),
-                  v2l(vals[1]), v2l(btxxs), v2l(btxys), v2l(btyys))
-        uvps, sig_gs, sig_rs, stats_list = [], [], [], []
-        for h, fur, fvr, bu, bv, txx, txy, tyy in per:
-            uvp, sg, sr, st = h.solve_and_densities(fur, fvr, bu, bv, txx,
-                                                    txy, tyy, tol, maxiter,
-                                                    restart)
-            uvps.append(uvp)
-            sig_gs.append(sg)
-            sig_rs.append(sr)
-            stats_list.append(st)
-        stats = {"annular_iterations": [s["iterations"] for s in stats_list],
-                 "annular_residuals": [s["residual"] for s in stats_list]}
+        ifc_data = list(zip(v2l(vals[0]), v2l(vals[1]), v2l(btxxs),
+                            v2l(btxys), v2l(btyys)))
+        # per-boundary annular solves + densities: one lockstep GMRES when
+        # every boundary has the same (M, n), else one after another
+        dims = {(h.annular_solver.M, h.annular_solver.n)
+                for h in self.helpers}
+        if len(self.helpers) > 1 and len(dims) == 1:
+            uvp_rts, bstats = batched_stokes_solve(
+                [h.annular_solver for h in self.helpers],
+                [h.metric for h in self.helpers],
+                [h.annular_rhs(fur, fvr) for h, fur, fvr in
+                 zip(self.helpers, fu.radials, fv.radials)],
+                tol, maxiter, restart)
+            for h, it in zip(self.helpers, bstats["iterations"]):
+                h.iterations_last_call = it
+            uvps, sig_gs, sig_rs = map(list, zip(*(
+                h.densities(uvp_rt, *d)
+                for h, uvp_rt, d in zip(self.helpers, uvp_rts, ifc_data))))
+            stats = {"annular_iterations": bstats["iterations"],
+                     "annular_residuals": bstats["residual"]}
+        else:
+            uvps, sig_gs, sig_rs, stats_list = [], [], [], []
+            for h, fur, fvr, d in zip(self.helpers, fu.radials, fv.radials,
+                                      ifc_data):
+                uvp, sg, sr, st = h.solve_and_densities(
+                    fur, fvr, *d, tol, maxiter, restart)
+                uvps.append(uvp)
+                sig_gs.append(sg)
+                sig_rs.append(sr)
+                stats_list.append(st)
+            stats = {"annular_iterations": [s["iterations"]
+                                            for s in stats_list],
+                     "annular_residuals": [s["residual"]
+                                           for s in stats_list]}
         self.iteration_counts = list(stats["annular_iterations"])
         if verbose:
             print("annular Stokes iterations:", self.iteration_counts)
@@ -302,7 +365,7 @@ class StokesSolver:
             uc, vc, pc = (c + torch.where(self._pna_mask, g, 0.0)
                           for c, g in zip((uc, vc, pc),
                                           self.grid_eval(wfx, wfy)))
-            _, _, gip = sk.stokes_slp_apply(
+            giu, giv, gip = sk.stokes_slp_apply(
                 self.grid_src_x, self.grid_src_y, wfx, wfy,
                 ebdyc.all_interface_x_dev, ebdyc.all_interface_y_dev)
         else:
@@ -314,17 +377,20 @@ class StokesSolver:
             uc, vc, pc = (c.reshape(-1).index_add(0, idx, g[:n_pna])
                           .reshape(c.shape) for c, g in ((uc, gu), (vc, gv),
                                                          (pc, gp)))
-            gip = gp[n_pna:]
+            giu, giv, gip = gu[n_pna:], gv[n_pna:], gp[n_pna:]
         # grid-side pressure at the interfaces (FFT solution + sigma_g field)
         bpl = v2l(bps + gip)
-        out = [h.correct(uvp, sr)
-               for h, uvp, sr in zip(self.helpers, uvps, sig_rs)]
+        single = len(self.helpers) == 1
+        out = [h.correct(uvp, sg, sr, bu, bv, single)
+               for h, uvp, sg, sr, bu, bv in zip(self.helpers, uvps, sig_gs,
+                                                 sig_rs, v2l(giu), v2l(giv))]
         urs = [o[0] for o in out]
         vrs = [o[1] for o in out]
         # Stokes pressure is only defined up to a constant per region: the
-        # annular and grid solves each pin their own; reconcile by matching
-        # the mean pressure across the interface (as ipde_tpu does; the
-        # reference leaves the mismatch, internals/vector.py:134-141)
+        # annular and grid solves each pin their own; reconcile each strip
+        # by matching the mean pressure across its interface (as ipde_tpu
+        # does; the reference leaves the mismatch,
+        # internals/vector.py:134-141)
         prs = [o[2] + (bp - h.f_to_ifc @ o[2]).mean()
                for h, o, bp in zip(self.helpers, out, bpl)]
         uc, vc, pc = ebdyc.interpolate_radial_to_grid_many(

@@ -1,0 +1,296 @@
+"""The port's batched annular solves and helper reuse against ipde_tpu: a
+Poisson problem with one inclusion of the interior boundary's (M, n) (both
+packages take the batched annular GMRES; ipde_tpu on the dense grid
+backend, the port on the fft one) with DirichletBIE; ``batched_annular_solve``
+against ipde_tpu's and against the per-boundary solves; ``batched_gmres``
+against ``gmres``; the ``helpers=`` reuse of tests/test_helper_reuse.py on the
+port.  Both packages are built from one saved geometry, at small sizes
+(M = 6).  Marker ``gpu``: the Poisson solve on the card against the CPU,
+skipped with a reason where torch sees no CUDA device.
+
+The reference BIE is given the port's radial plans (every source except on
+an interior boundary's own rows; see tests/test_torch_multi_body.py).
+
+Tolerances: solutions to 1e-10 of max |ipde_tpu| (GMRES stops at 1e-12 and
+the sums run in another order), GMRES iterations within one."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from ipde_tpu.functions import BoundaryFunction as JBF
+from ipde_tpu.functions import EmbeddedFunction as JEF
+from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
+from ipde_tpu.geometry.curve import star as jstar
+from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
+from ipde_tpu.ops.stratified import StratifiedRadialApply as JSRA
+from ipde_tpu.solvers import annular_scalar as jann
+from ipde_tpu.solvers.bie import DirichletBIE as JDBIE
+from ipde_tpu.solvers.scalar import PoissonSolver as JPS
+from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
+from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
+                                                load_collection)
+from ipde_tpu_torch.geometry.curve import star
+from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
+from ipde_tpu_torch.ops.gmres import batched_gmres, gmres
+from ipde_tpu_torch.solvers import annular_scalar as ann
+from ipde_tpu_torch.solvers import scalar as tscalar
+from ipde_tpu_torch.solvers.bie import DirichletBIE
+from ipde_tpu_torch.solvers.scalar import (ModifiedHelmholtzSolver,
+                                           PoissonSolver)
+from ipde_tpu_torch.solvers.vector import StokesSolver
+
+SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module.  The tier-1 command runs six
+    workers on eight cores, where torch's OpenMP threads oversubscribe the
+    CPU: the port's small CPU paths here then run many times slower than on
+    one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+# the manufactured solution of tests/test_exterior.py
+def psol(x, y):
+    return -np.cos(x) * np.exp(np.sin(x)) * np.sin(y)
+
+
+def pfrc(x, y):
+    return ((2.0 * np.cos(x) + 3.0 * np.cos(x) * np.sin(x) - np.cos(x) ** 3)
+            * np.exp(np.sin(x)) * np.sin(y))
+
+
+def _np(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _plans_as_port(jbie):
+    """The port's BIE radial plans on an ipde_tpu BIE (see
+    tests/test_torch_multi_body.py::_plans_as_port)."""
+    for i, e in enumerate(jbie.ebdyc):
+        for j, (src, ej) in enumerate(zip(jbie.src_list, jbie.ebdyc)):
+            if not (i == j and e.interior):
+                jbie.radial_plans[i][j] = JSRA(src, e.radial_x, e.radial_y,
+                                               k_density=ej.bdy.N // 2,
+                                               max_stride=1)
+    return jbie
+
+
+def _gap(got, want, phys):
+    """max |got - want| over the physical grid points and every radial
+    grid, relative to max |want| there."""
+    g, w = _np(got.grid), _np(want.grid)
+    scale = max(np.abs(w)[phys].max(),
+                max(np.abs(_np(r)).max() for r in want.radials))
+    gap = max(np.abs(g - w)[phys].max(),
+              max(np.abs(_np(a) - _np(b)).max()
+                  for a, b in zip(got.radials, want.radials)))
+    return gap / scale
+
+
+def _err(ef, ebdyc, f):
+    """max |ef - f| over the physical grid points and radial nodes."""
+    g = ebdyc.grid
+    return max(np.abs(_np(ef.grid) - f(g.xg, g.yg))[ebdyc.phys].max(),
+               max(np.abs(_np(r) - f(e.radial_x, e.radial_y)).max()
+                   for r, e in zip(ef.radials, ebdyc.ebdys)))
+
+
+@pytest.fixture(scope="module")
+def poisson2():
+    """Poisson with one inclusion of the interior boundary's (n, M): both
+    packages take the batched annular GMRES.  ipde_tpu on the dense grid
+    backend, the port on the fft one."""
+    M = 6
+    outer = jstar(64, a=0.1, f=3)
+    inner = jstar(64, x=0.1, y=-0.05, r=0.35, a=0.05, f=3)
+    bh = min(outer.min_h(), inner.min_h(),
+             0.6 / np.abs(inner.curvature).max() / M)
+    jc = JEBC([JEB(outer, True, M, bh), JEB(inner, False, M, bh)])
+    jc.generate_grid(bh)
+    js = JPS(jc, grid_backend="dense")
+    jf = JEF.from_function(jc, pfrc)
+    jraw, jst = js.solve_with_stats(jf, **SOLVE)
+    jbc = JBF.from_function(jc, psol)
+    juf = _plans_as_port(JDBIE(js)).apply_bc(jraw, jbc)
+    tc = load_collection(jc.save(), "cpu")
+    tc.generate_grid(bh)
+    return dict(jc=jc, js=js, jraw=jraw, jst=jst, juf=juf, tc=tc,
+                ts=PoissonSolver(tc),
+                tf=EmbeddedFunction.load(jf.save(), "cpu"),
+                tbc=BoundaryFunction.from_function(tc, psol))
+
+
+def test_inclusion_poisson_batched(poisson2, monkeypatch):
+    p = poisson2
+    ts, tc = p["ts"], p["tc"]
+    assert ts.grid_backend == "fft"
+    calls = []
+    orig = tscalar.batched_annular_solve
+    monkeypatch.setattr(tscalar, "batched_annular_solve",
+                        lambda *a: calls.append(1) or orig(*a))
+    raw, st = ts.solve_with_stats(p["tf"], **SOLVE)
+    assert calls == [1]
+    assert max(st["annular_residuals"]) <= SOLVE["tol"]
+    for a, b in zip(st["annular_iterations"], p["jst"]["annular_iterations"]):
+        assert abs(a - int(b)) <= 1
+    assert _gap(raw, p["jraw"], tc.phys) <= 1e-10
+    got = DirichletBIE(ts).apply_bc(raw, p["tbc"])
+    assert _gap(got, p["juf"], tc.phys) <= 1e-10
+    assert _err(got, tc, psol) <= 1.01 * _err(p["juf"], tc, psol) + 1e-12
+
+
+def test_batched_annular_solve_matches_reference(poisson2):
+    jh, th = poisson2["js"].helpers, poisson2["ts"].helpers
+    M, n = th[0].annular_solver.M, th[0].annular_solver.n
+    rng = np.random.default_rng(31)
+    fs = rng.standard_normal((2, M, n))
+    jr = [h.annular_rhs(jnp.asarray(f)) for h, f in zip(jh, fs)]
+    tr = [h.annular_rhs(torch.as_tensor(f)) for h, f in zip(th, fs)]
+    want, jst = jann.batched_annular_solve(
+        [h.annular_solver for h in jh], [h.metric for h in jh], jr,
+        SOLVE["tol"], SOLVE["maxiter"], SOLVE["restart"])
+    got, st = ann.batched_annular_solve(
+        [h.annular_solver for h in th], [h.metric for h in th], tr,
+        **SOLVE)
+    for g, w, it, jit, r, h, f in zip(got, want, st["iterations"],
+                                      jst["iterations"], st["residual"], th,
+                                      fs):
+        assert r <= SOLVE["tol"] and abs(it - int(jit)) <= 1
+        w = np.asarray(w)
+        assert np.abs(_np(g) - w).max() <= 1e-10 * np.abs(w).max()
+        # and against the port's own one-boundary solve
+        one, ost = h.annular_solver.solve_with_stats(
+            h.metric, torch.as_tensor(f), h.zero_bc, h.zero_bc, **SOLVE)
+        assert abs(ost["iterations"] - it) <= 1
+        assert np.abs(_np(g) - _np(one)).max() <= 1e-10 * np.abs(w).max()
+    with pytest.raises(RuntimeError, match="did not converge"):
+        ann.batched_annular_solve([h.annular_solver for h in th],
+                                  [h.metric for h in th], tr, tol=1e-12,
+                                  maxiter=2, restart=2)
+
+
+def _systems(n=40, seed=5):
+    rng = np.random.default_rng(seed)
+    out = []
+    for scale in (0.3, 1.0, 3.0):       # three rates of convergence
+        A = np.eye(n) * 4 + scale * rng.standard_normal((n, n)) / np.sqrt(n)
+        P = np.linalg.inv(np.diag(np.diag(A)) + np.triu(A, 1) * 0.5)
+        out.append((A, P, rng.standard_normal(n)))
+    return out
+
+
+@pytest.mark.parametrize("restart", [7, 40])
+def test_batched_gmres_matches_gmres(restart):
+    systems = _systems()
+    A = torch.as_tensor(np.stack([s[0] for s in systems]))
+    P = torch.as_tensor(np.stack([s[1] for s in systems]))
+    b = torch.as_tensor(np.stack([s[2] for s in systems]))
+    b[1] = 0.0                        # a zero right-hand side: no iteration
+    kw = dict(tol=1e-13, maxiter=80, restart=restart)
+    res = batched_gmres(lambda v: (A @ v[..., None])[..., 0], b,
+                        precond=lambda v: (P @ v[..., None])[..., 0], **kw)
+    assert res.iterations[1] == 0 and res.residual[1] == 0.0
+    assert float(res.x[1].abs().max()) == 0.0
+    assert res.iterations[0] != res.iterations[2]
+    for i in (0, 2):
+        one = gmres(lambda v: A[i] @ v, b[i], precond=lambda v: P[i] @ v,
+                    **kw)
+        assert res.iterations[i] == one.iterations
+        assert res.residual[i] <= 1e-13
+        true = float(torch.linalg.vector_norm(b[i] - A[i] @ res.x[i])
+                     / torch.linalg.vector_norm(b[i]))
+        assert res.residual[i] == pytest.approx(true, rel=0, abs=1e-15)
+        assert float((res.x[i] - one.x).abs().max()) <= \
+            1e-12 * float(one.x.abs().max())
+
+
+def _moved(a, bh, nb=48, M=6, Mr=None):
+    bdy = star(nb, a=a, f=5)
+    ebdyc = EmbeddedBoundaryCollection(
+        [EmbeddedBoundary(bdy, True, Mr or M, bh, qfs_tolerance=1e-14)],
+        device="cpu")
+    ebdyc.generate_grid(bh)
+    return ebdyc
+
+
+def test_scalar_helper_reuse():
+    """tests/test_helper_reuse.py::test_scalar_helper_reuse on the port at
+    nb=48, M=6, dense grid backend."""
+    nb, M, k = 48, 6, 2.0
+    b0 = star(nb, a=0.2, f=5)
+    bh = min(b0.min_h(), 0.6 / np.abs(b0.curvature).max() / M)
+    c0, c1 = _moved(0.2, bh), _moved(0.205, bh)
+    dense = dict(grid_backend="dense")
+    s0 = ModifiedHelmholtzSolver(c0, k=k, **dense)
+    s1 = ModifiedHelmholtzSolver(c1, k=k, helpers=s0.helpers, **dense)
+    assert s1.helpers[0].annular_solver is s0.helpers[0].annular_solver
+    # another k, or another PDE, must not reuse
+    s2 = ModifiedHelmholtzSolver(c1, k=3.0, helpers=s0.helpers, **dense)
+    assert s2.helpers[0].annular_solver is not s0.helpers[0].annular_solver
+    s3 = PoissonSolver(c1, helpers=s0.helpers, **dense)
+    assert s3.helpers[0].annular_solver is not s0.helpers[0].annular_solver
+    # the reused preconditioner still reaches discretization accuracy
+    u = lambda x, y: np.exp(np.sin(x)) * np.sin(2 * y)  # noqa: E731
+    frc = lambda x, y: ((k**2 + 4) * u(x, y)  # noqa: E731
+                        - (np.cos(x) ** 2 - np.sin(x)) * u(x, y))
+    f = EmbeddedFunction.from_function(c1, frc)
+    bc = BoundaryFunction.from_function(c1, u)
+    ue = DirichletBIE(s1).apply_bc(s1(f, **SOLVE), bc)
+    fresh = ModifiedHelmholtzSolver(c1, k=k, **dense)
+    uf = DirichletBIE(fresh).apply_bc(fresh(f, **SOLVE), bc)
+    ge = np.abs(_np(ue.grid) - u(c1.grid.xg, c1.grid.yg))[c1.phys].max()
+    gf = np.abs(_np(uf.grid) - u(c1.grid.xg, c1.grid.yg))[c1.phys].max()
+    assert ge < max(3 * gf, 1e-9), (ge, gf)
+
+
+def test_stokes_helper_reuse_donor():
+    """tests/test_helper_reuse.py::test_stokes_helper_reuse_donor on the
+    port at nb=48, M=6."""
+    nb, M = 48, 6
+    b0 = star(nb, a=0.2, f=5)
+    bh = min(b0.min_h(), 0.6 / np.abs(b0.curvature).max() / M)
+    c0, c1 = _moved(0.2, bh), _moved(0.205, bh)
+    s0 = StokesSolver(c0, grid_backend="dense")
+    s1 = StokesSolver(c1, grid_backend="dense", helpers=s0.helpers)
+    assert s1.helpers[0].annular_solver is s0.helpers[0].annular_solver
+    s2 = StokesSolver(_moved(0.2, bh, Mr=M + 2), grid_backend="dense",
+                      helpers=s0.helpers)
+    assert s2.helpers[0].annular_solver is not s0.helpers[0].annular_solver
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+def test_inclusion_poisson_on_cuda_matches_cpu(poisson2):
+    from ipde_tpu_torch.ops import kernels as K
+    dev = _cuda()
+    out = {}
+    for d in ("cpu", dev):
+        tc = load_collection(poisson2["jc"].save(), d)
+        tc.generate_grid(tc.ebdys[0].h)
+        ts = PoissonSolver(tc)
+        before = K.laplace_slp_apply.launches
+        ue = DirichletBIE(ts).apply_bc(
+            ts(EmbeddedFunction.from_function(tc, pfrc), **SOLVE),
+            BoundaryFunction.from_function(tc, psol))
+        out[str(d)] = (ue, K.laplace_slp_apply.launches - before, tc.phys)
+    (cpu, nc, phys), (gpu, ng, _) = out["cpu"], out["cuda:0"]
+    assert nc == 0 and ng > 0
+    assert _gap(gpu, cpu, phys) <= 1e-10

@@ -1,0 +1,284 @@
+"""The port's scalar solvers and BIEs on several boundaries against ipde_tpu:
+the three-body modified Helmholtz problem of tests/test_multi_body.py (one
+interior star, two inclusions of another (M, n): the per-boundary GMRES
+loop) with DirichletBIE and NeumannBIE, dense grid backend, and the
+exterior geometry operators of tests/test_exterior.py.  The Poisson problem
+with one inclusion (the batched GMRES, fft grid backend), the batched
+solves and the helper reuse are in tests/test_torch_batched.py.  Both
+packages are built from one saved geometry, at small sizes (M = 6).
+Marker ``gpu``: the same solve on the card against the CPU, skipped with a
+reason where torch sees no CUDA device.
+
+The port takes every source in the BIE's radial plans of an inclusion and
+of another boundary (``solvers/bie.py::_radial_plans``); ipde_tpu subsamples
+them, which costs its three-body Stokes problem three orders of accuracy.
+The reference BIEs here are given the port's plans (``_plans_as_port``),
+built by ipde_tpu's own StratifiedRadialApply.
+
+Tolerances: solutions to 1e-10 of max |ipde_tpu| (GMRES stops at 1e-12 and
+the sums run in another order), GMRES iterations within one."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from ipde_tpu.functions import BoundaryFunction as JBF
+from ipde_tpu.functions import EmbeddedFunction as JEF
+from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
+from ipde_tpu.geometry.curve import squished_circle as jsquished
+from ipde_tpu.geometry.curve import star as jstar
+from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
+from ipde_tpu.ops.stratified import StratifiedRadialApply as JSRA
+from ipde_tpu.solvers.bie import DirichletBIE as JDBIE
+from ipde_tpu.solvers.bie import NeumannBIE as JNBIE
+from ipde_tpu.solvers.scalar import ModifiedHelmholtzSolver as JMHS
+from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
+from ipde_tpu_torch.geometry.collection import load_collection
+from ipde_tpu_torch.solvers import scalar as tscalar
+from ipde_tpu_torch.solvers.bie import DirichletBIE, NeumannBIE
+from ipde_tpu_torch.solvers.scalar import ModifiedHelmholtzSolver
+
+KH = 2.0
+SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module.  The tier-1 command runs six
+    workers on eight cores, where torch's OpenMP threads oversubscribe the
+    CPU: the port's small CPU paths here then run many times slower than on
+    one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+# the manufactured solution of tests/test_multi_body.py
+def sol(x, y):
+    return np.exp(np.sin(x)) * np.sin(2 * y) + 0.3 * np.cos(3 * x) * np.cos(y)
+
+
+def lap_sol(x, y):
+    u1 = np.exp(np.sin(x)) * np.sin(2 * y)
+    u1xx = np.exp(np.sin(x)) * (np.cos(x) ** 2 - np.sin(x)) * np.sin(2 * y)
+    return u1xx - 4 * u1 - 10 * 0.3 * np.cos(3 * x) * np.cos(y)
+
+
+def grad_sol(x, y):
+    ux = (np.cos(x) * np.exp(np.sin(x)) * np.sin(2 * y)
+          - 0.9 * np.sin(3 * x) * np.cos(y))
+    uy = (2 * np.exp(np.sin(x)) * np.cos(2 * y)
+          - 0.3 * np.cos(3 * x) * np.sin(y))
+    return ux, uy
+
+
+
+def _np(a):
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _plans_as_port(jbie):
+    """Give an ipde_tpu BIE the port's radial plans: every source, except
+    on an interior boundary's own rows (solvers/bie.py::_radial_plans)."""
+    for i, e in enumerate(jbie.ebdyc):
+        for j, (src, ej) in enumerate(zip(jbie.src_list, jbie.ebdyc)):
+            if not (i == j and e.interior):
+                jbie.radial_plans[i][j] = JSRA(src, e.radial_x, e.radial_y,
+                                               k_density=ej.bdy.N // 2,
+                                               max_stride=1)
+    return jbie
+
+
+def _gap(got, want, phys):
+    """max |got - want| over the physical grid points and every radial
+    grid, relative to max |want| there."""
+    g, w = _np(got.grid), _np(want.grid)
+    scale = max(np.abs(w)[phys].max(),
+                max(np.abs(_np(r)).max() for r in want.radials))
+    gap = max(np.abs(g - w)[phys].max(),
+              max(np.abs(_np(a) - _np(b)).max()
+                  for a, b in zip(got.radials, want.radials)))
+    return gap / scale
+
+
+def _err(ef, ebdyc, f):
+    """max |ef - f| over the physical grid points and radial nodes."""
+    g = ebdyc.grid
+    return max(np.abs(_np(ef.grid) - f(g.xg, g.yg))[ebdyc.phys].max(),
+               max(np.abs(_np(r) - f(e.radial_x, e.radial_y)).max()
+                   for r, e in zip(ef.radials, ebdyc.ebdys)))
+
+
+def _mh3_collection(nb=48, M=6):
+    """tests/test_multi_body.py's geometry at nb=48 (72 + 48 + 48 points)."""
+    b1 = jstar(3 * nb // 2, a=0.1, f=5, r=2.0)
+    b2 = jstar(nb, x=-0.8, y=-0.5, a=0.1, f=3, r=0.45)
+    b3 = jsquished(nb, x=0.7, y=0.6, r=0.5, b=0.7, rot=np.pi / 5)
+    kmax = max(np.abs(b.curvature).max() for b in (b1, b2, b3))
+    bh = min(min(b.min_h() for b in (b1, b2, b3)), 0.6 / kmax / M)
+    jc = JEBC([JEB(b, b is b1, M, bh, qfs_tolerance=1e-14)
+               for b in (b1, b2, b3)])
+    jc.generate_grid(bh)
+    return jc, bh
+
+
+@pytest.fixture(scope="module")
+def mh3():
+    """Three-body Yukawa, k = 2, dense grid backend, solved by ipde_tpu;
+    the port's solver from the saved geometry; both packages' DirichletBIE
+    (ipde_tpu's own radial strides kept aside, then the port's plans)."""
+    jc, bh = _mh3_collection()
+    js = JMHS(jc, k=KH, grid_backend="dense")
+    jf = JEF.from_function(jc, lambda x, y: KH**2 * sol(x, y)
+                           - lap_sol(x, y))
+    jraw, jst = js.solve_with_stats(jf, **SOLVE)
+    jd = JDBIE(js)
+    jstrides = [[p.strides.copy() for p in row] for row in jd.radial_plans]
+    tc = load_collection(jc.save(), "cpu")
+    tc.generate_grid(bh)
+    ts = ModifiedHelmholtzSolver(tc, k=KH, grid_backend="dense")
+    tf = EmbeddedFunction.load(jf.save(), "cpu")
+    traw, tst = ts.solve_with_stats(tf, **SOLVE)
+    # du/dn of the manufactured solution on each boundary
+    bcn = [sum(g * n for g, n in zip(grad_sol(e.bdy.x, e.bdy.y),
+                                     (e.bdy.normal_x, e.bdy.normal_y)))
+           for e in tc]
+    return dict(jc=jc, js=js, jraw=jraw, jst=jst, jd=_plans_as_port(jd),
+                jstrides=jstrides, tc=tc, ts=ts, tf=tf, traw=traw, tst=tst,
+                td=DirichletBIE(ts), jbc=JBF.from_function(jc, sol),
+                tbc=BoundaryFunction.from_function(tc, sol), bcn=bcn)
+
+
+def test_three_body_mh_solve(mh3, monkeypatch):
+    tc, raw, st = mh3["tc"], mh3["traw"], mh3["tst"]
+    assert [e.interior for e in tc] == [True, False, False]
+    assert max(st["annular_residuals"]) <= SOLVE["tol"]
+    assert len(st["annular_iterations"]) == 3
+    for a, b in zip(st["annular_iterations"],
+                    mh3["jst"]["annular_iterations"]):
+        assert abs(a - int(b)) <= 1
+    assert _gap(raw, mh3["jraw"], tc.phys) <= 1e-10
+    # two (M, n) among the boundaries: the per-boundary loop, as ipde_tpu
+    calls = []
+    monkeypatch.setattr(tscalar, "batched_annular_solve",
+                        lambda *a: calls.append(1))
+    mh3["ts"].solve_with_stats(mh3["tf"], **SOLVE)
+    assert calls == []
+
+
+def test_three_body_mh_dirichlet(mh3):
+    want = mh3["jd"].apply_bc(mh3["jraw"], mh3["jbc"])
+    got = mh3["td"].apply_bc(mh3["traw"], mh3["tbc"])
+    tc = mh3["tc"]
+    assert _gap(got, want, tc.phys) <= 1e-10
+    # the manufactured solution, to the accuracy ipde_tpu reaches
+    err, jerr = _err(got, tc, sol), _err(want, tc, sol)
+    assert err <= 1.01 * jerr + 1e-12
+
+
+def test_three_body_mh_neumann(mh3):
+    jb = _plans_as_port(JNBIE(mh3["js"]))
+    want = jb.apply_bc(mh3["jraw"], JBF([jnp.asarray(v) for v in mh3["bcn"]]))
+    got = NeumannBIE(mh3["ts"]).apply_bc(
+        mh3["traw"], BoundaryFunction([torch.as_tensor(v)
+                                       for v in mh3["bcn"]]))
+    tc = mh3["tc"]
+    assert _gap(got, want, tc.phys) <= 1e-10
+    assert _err(got, tc, sol) <= 1.01 * _err(want, tc, sol) + 1e-12
+
+
+def test_ipde_tpu_subsamples_the_cross_plans(mh3):
+    """ipde_tpu's own plans subsample the inclusions' rows; the port's
+    take every source there (the fault the port repairs)."""
+    jstrides = mh3["jstrides"]
+    assert any(max(s) > 1 for i, row in enumerate(jstrides)
+               for j, s in enumerate(row) if (i, j) != (0, 0))
+    for i, row in enumerate(mh3["td"].radial_plans):
+        for j, plan in enumerate(row):
+            if (i, j) == (0, 0):
+                assert np.array_equal(plan.strides, jstrides[0][0])
+            else:
+                assert list(plan.strides) == [1] * len(plan.strides)
+
+
+def test_exterior_geometry_ops():
+    """tests/test_exterior.py::test_exterior_geometry_ops on the port, and
+    its interpolation rows against ipde_tpu's."""
+    nb, M = 300, 10
+    jb = jstar(nb, x=np.pi, y=np.pi, a=0.1, f=3, r=0.9)
+    bh = min(jb.min_h(), 0.6 / np.abs(jb.curvature).max() / M)
+    je = JEB(jb, False, M, bh)
+    e = load_collection({"ebdys": [je.save()]}, "cpu").ebdys[0]
+    bdy = e.bdy
+    assert not e.interior and e.lb == 0.0 and e.ub > 0.0
+    assert (e.lb, e.ub) == (je.lb, je.ub)
+    F = lambda x, y: np.sin(x) * np.cos(y)  # noqa: E731
+    fr = F(e.radial_x, e.radial_y)
+    fb = _np(e.interpolate_radial_to_boundary(fr))
+    assert np.abs(fb - F(bdy.x, bdy.y)).max() < 1e-10
+    fi = _np(e.interpolate_radial_to_interface(fr))
+    assert np.abs(fi - F(e.interface.x, e.interface.y)).max() < 1e-10
+    FX = lambda x, y: np.cos(x) * np.cos(y)  # noqa: E731
+    FY = lambda x, y: -np.sin(x) * np.sin(y)  # noqa: E731
+    fn = _np(e.interpolate_radial_to_boundary_normal_derivative(fr))
+    exact = FX(bdy.x, bdy.y) * bdy.normal_x + FY(bdy.x, bdy.y) * bdy.normal_y
+    assert np.abs(fn - exact).max() < 1e-7
+    for name in ("interp_f_to_bdy", "interp_f_to_interface",
+                 "interp_dn_to_bdy", "interp_dn_to_interface"):
+        got, want = _np(getattr(e, name)), np.asarray(getattr(je, name))
+        assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max(), name
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["dense", "fft"])
+def test_three_body_mh_on_cuda_matches_cpu(mh3, backend):
+    """The three-body Yukawa Dirichlet solve on the card and on the CPU,
+    with every mh_slp launch of the card's run held to the plain version."""
+    from ipde_tpu_torch.ops import kernels as K
+    dev = _cuda()
+    out = {}
+    for d in ("cpu", dev):
+        tc = load_collection(mh3["jc"].save(), d)
+        tc.generate_grid(tc.ebdys[0].h)
+        ts = ModifiedHelmholtzSolver(tc, k=KH, grid_backend=backend)
+        bie = DirichletBIE(ts)
+        f = EmbeddedFunction.from_function(
+            tc, lambda x, y: KH**2 * sol(x, y) - lap_sol(x, y))
+        calls = []
+        orig = K.mh_slp_apply
+
+        def rec(*a):
+            calls.append(a)
+            return orig(*a)
+
+        rec.launches = orig.launches
+        K.mh_slp_apply = rec
+        try:
+            ue = bie.apply_bc(ts(f, **SOLVE),
+                              BoundaryFunction.from_function(tc, sol))
+        finally:
+            K.mh_slp_apply = orig
+        out[str(d)] = (ue, calls, tc.phys)
+    (cpu, _, phys), (gpu, calls, _) = out["cpu"], out["cuda:0"]
+    assert _gap(gpu, cpu, phys) <= 1e-10
+    assert calls
+    for a in calls:
+        got, want = K.mh_slp_apply(*a), K.mh_slp_apply_plain(*a)
+        assert float((got - want).abs().max()) <= \
+            1e-12 * float(want.abs().max())
+
+

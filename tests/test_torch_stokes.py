@@ -340,7 +340,7 @@ def test_stokes_qfs_maps(problem):
     jh, th = problem["js"].helpers[0], problem["ts"].helpers[0]
     # one host LAPACK composition from identical inputs
     for jq, tq in ((jh.qfs_g, th.qfs_g), (jh.qfs_r, th.qfs_r),
-                   (problem["jb"].qfs_list[0], problem["tb"].qfs)):
+                   (problem["jb"].qfs_list[0], problem["tb"].qfs_list[0])):
         assert len(jq.mats) == len(tq.mats)
         for jm, tm in zip(jq.mats, tq.mats):
             assert np.array_equal(_np(jm), _np(tm))
@@ -458,16 +458,18 @@ def test_unported_options_raise(problem):
         == "fft"
     with pytest.raises(ValueError, match="spectral"):
         StokesSolver(tc, grid_backend="spectral")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 16"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
         StokesSolver(tc, solver_type="fourth")
+    # several boundaries and an inclusion are ported: such collections now
+    # build a solver (tests/test_torch_multi_stokes.py solves them)
     e = tc.ebdys[0]
-    for ebdys in (list(tc.ebdys) * 2,
-                  [EmbeddedBoundary(e.bdy, False, e.M, e.h)]):
-        other = EmbeddedBoundaryCollection(ebdys, device="cpu")
-        other.grid = tc.grid
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md Queue 1 item 15"):
-            StokesSolver(other)
+    inner = star(64, x=0.05, y=0.0, r=0.3, a=0.05, f=3)
+    other = EmbeddedBoundaryCollection(
+        [e, EmbeddedBoundary(inner, False, 4, e.h)], device="cpu")
+    other.generate_grid(e.h)
+    solver = StokesSolver(other, grid_backend="dense")
+    assert [h.interior for h in solver.helpers] == [True, False]
+    assert all(h.qfs_r.u2s_mat is not None for h in solver.helpers)
 
 
 # the MMS of tests/test_interior_stokes.py

@@ -125,7 +125,7 @@ def main():
         if name == "stokes":
             fsol = StokesSolver(ebdyc)
             fbie = StokesDirichletBIE(fsol)
-            src = fbie.src.dev(dev)
+            src = fbie.src_list[0].dev(dev)
             kernel = SK.stokes_slp_apply
 
             def solve(s, b):

@@ -74,7 +74,29 @@ phase prints its seconds):
      stokes_3body, batched_annular_solve on those of mh_3body_k2) against
      the per-boundary loop: within 1e-10, iterations within one, residuals
      <= tol, both timed.
-  6. print the kernels' JSON line, the card's name and power limit, then
+  6. the moving-boundary path:
+       - stepper: examples/coupled_advection_diffusion.py at its defaults,
+         star(200, a=0.1, f=3), M=10, generate_grid(bh, pad_quantum=2048),
+         nu = 0.05, dt = 0.05 (k = 20), the rigid rotation u = -y, v = x,
+         4 steps of CoupledAdvectionDiffusionStepper (GMRES tol 1e-12),
+         every count set to 0 before step 1 and read after step 4; each
+         step's generate / advect / setup / solve seconds and mh_slp
+         launches; step 2 traced by torch.profiler (device ms, idle share);
+         the mh_slp launches of step 3 recorded and, after the run, each
+         distinct (T, S) held to the plain version (<= 1e-12 relative),
+         timed beside its bound, two runs bit for bit; the relative error
+         against the exact solution must be within 1e-8 of ipde_tpu's on
+         the CPU (IPDE_TPU_COUPLED_CPU); the final mass is printed;
+       - advectors: examples/unsteady_advection_study.py at dt = 0.05 to
+         T = 0.4 (circle(150), M=12), FE, BDF2 and BDF3, each error within
+         1% of ipde_tpu's on the CPU (IPDE_TPU_UNSTEADY_CPU);
+       - tier-2 interface plan: bench.py tier 2's geometry and box
+         (star(2700, a=0.2, f=5), M=20, grid_target 2048); generate_grid
+         must route the interface plan to PeriodicInterpolator2D, whose
+         values and window derivatives for one smooth field must be within
+         1e-12 (of the field's max) of ExactInterp2D on the same targets;
+         both timed.
+  7. print the kernels' JSON line, the card's name and power limit, then
      the device JSON line last.
 The four solves above run with grid_backend="dense": the merged sigma_g and
 the BIE field go onto the physical grid points through the CUDA kernels.
@@ -152,6 +174,30 @@ TOL_STOKES3_VEL = 3 * IPDE_TPU_STOKES3_CPU["port"]
 MH3_K = 2.0
 TOL_MH3 = 5e-9                   # tests/test_multi_body.py
 TOL_INCLUSION = 5e-8             # tests/test_exterior.py
+# the stepper phase: examples/coupled_advection_diffusion.py at its defaults
+# (4 steps); ipde_tpu's relative error and final mass on the CPU, from
+#   JAX_PLATFORMS=cpu python tools/ipde_tpu_advection_reference.py --cases coupled
+# (the example itself prints "rel err 2.05e-02 after T=0.2" and "final mass:
+# 1.009941510172469"); the port is held to that error within 1e-8 absolute
+ADV_NB, ADV_M, ADV_PQ, ADV_STEPS = 200, 10, 2048, 4
+ADV_NU, ADV_DT, ADV_T0 = 0.05, 0.05, 0.5
+IPDE_TPU_COUPLED_CPU = {"rel_err": 0.020508347002549318,
+                        "mass": 1.009941510172469}
+TOL_COUPLED_ABS = 1e-8
+# the advector phase: examples/unsteady_advection_study.py at dt = 0.05 to
+# T = 0.4 (circle(150), M = 12); ipde_tpu's errors on the CPU from
+#   JAX_PLATFORMS=cpu python tools/ipde_tpu_advection_reference.py --cases unsteady
+# (LEDGER_TPU.json unsteady_advection@cpu: 2.4424e-2, 3.5844e-3, 2.4272e-4);
+# the port is held to each within 1% relative
+UNSTEADY_NB, UNSTEADY_M, UNSTEADY_DT, UNSTEADY_T = 150, 12, 0.05, 0.4
+IPDE_TPU_UNSTEADY_CPU = {"fe": 0.02442428590669099,
+                         "bdf2": 0.003584412448387919,
+                         "bdf3": 0.0002427203155279667}
+TOL_UNSTEADY_REL = 0.01
+# the tier-2 interface plan: bench.py tier 2 (star(2700, a=0.2, f=5), M=20,
+# h sized for grid_target 2048 as bench.py:63-71 does)
+TIER2_NB, TIER2_M, TIER2_GRID_TARGET = 2700, 20, 2048
+TOL_INTERFACE_REL = 1e-12
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 # FP64 operations per target-source pair (FMA = 2, log = reciprocal = 1).
@@ -1346,24 +1392,31 @@ def multi_problems():
 
 
 def hold_distinct_launches(label, run, module, name, plain, err, bound_of):
-    """Every launch of ``module.name`` in one run of ``run``: the count, each
-    distinct (T, S) against the plain version (TOL_KERNEL_REL) and alone
-    beside its bound, two runs bit for bit (time_launches).  Returns the
-    largest max abs difference from the plain version."""
-    kernel = getattr(module, name)
-    calls = record_launch_args(run, module, name)
+    """Every launch of ``module.name`` in one run of ``run`` (one solve +
+    apply_bc), held by hold_calls.  Returns the largest max abs difference
+    from the plain version."""
+    return hold_calls(label, record_launch_args(run, module, name),
+                      getattr(module, name), plain, err, bound_of,
+                      "one solve + apply_bc")
+
+
+def hold_calls(label, calls, kernel, plain, err, bound_of, where):
+    """Recorded launches ``calls`` of ``kernel``: the count, each distinct
+    (T, S) against the plain version (TOL_KERNEL_REL) and alone beside its
+    bound, two runs bit for bit (time_launches).  Returns the largest max
+    abs difference from the plain version."""
     shapes = {}
     for a in calls:
         T = next(t for t in reversed(a) if isinstance(t, torch.Tensor))
         shapes.setdefault((T.shape[0], a[0].shape[0]), a)
-    print(f"# {label}: {len(calls)} {name} launches in one solve + apply_bc, "
+    print(f"# {label}: {len(calls)} {kernel.__name__} launches in {where}, "
           f"{len(shapes)} distinct (T, S): "
           f"{sorted(shapes)}", flush=True)
     errs = [compare(kernel, plain, err, f"{label} T={T} S={S}", a,
                     plain_reps=1)[0] for (T, S), a in sorted(shapes.items())]
-    time_launches(f"{name} {label}", kernel,
+    time_launches(f"{kernel.__name__} {label}", kernel,
                   [shapes[k] for k in sorted(shapes)], bound_of,
-                  what="distinct launch shapes of one solve")
+                  what=f"distinct launch shapes of {where}")
     return max(errs)
 
 
@@ -1507,6 +1560,268 @@ def multi_body_phase(dev, K, SK, counters):
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# the moving-boundary path (stepper, advectors) and the tier-2 interface plan
+# ---------------------------------------------------------------------------
+
+def coupled_exact(x, y, T):
+    """The diffusing Gaussian of examples/coupled_advection_diffusion.py."""
+    s = 4 * ADV_NU * (T + ADV_T0)
+    return np.exp(-(x * x + y * y) / s) / (np.pi * s)
+
+
+def rel_err_all(ebdyc, ef, exact):
+    """max |ef - exact| over the physical grid points and every radial grid,
+    over max |exact| on the physical grid points (the examples' rule)."""
+    g = ebdyc.grid
+    want = exact(g.xg, g.yg)
+    ge = np.abs(ef.grid.cpu().numpy() - want)[ebdyc.phys].max()
+    re = max(np.abs(fr.cpu().numpy() - exact(e.radial_x, e.radial_y)).max()
+             for e, fr in zip(ebdyc, ef.radials))
+    return float(max(ge, re) / np.abs(want[ebdyc.phys]).max())
+
+
+def stepper_phase(dev, K, counters):
+    """examples/coupled_advection_diffusion.py at its defaults through
+    CoupledAdvectionDiffusionStepper: every count set to 0 before step 1 and
+    read after step 4; step 2 traced by torch.profiler (device ms, idle
+    share), the mh_slp launches of step 3 recorded and, after the run, each
+    distinct (T, S) held to the plain version, timed beside its bound, two
+    runs bit for bit; the relative error against the exact solution within
+    TOL_COUPLED_ABS of ipde_tpu's.  Returns (mh_slp launches, max abs
+    difference from the plain version)."""
+    from ipde_tpu_torch.advection.stepper import \
+        CoupledAdvectionDiffusionStepper
+    from ipde_tpu_torch.functions import EmbeddedFunction
+    from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
+    from ipde_tpu_torch.geometry.curve import star
+    from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
+    t_phase = time.perf_counter()
+    bdy = star(ADV_NB, a=0.1, f=3)
+    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / ADV_M)
+    ebdyc = EmbeddedBoundaryCollection(
+        [EmbeddedBoundary(bdy, True, ADV_M, bh, qfs_tolerance=1e-12)],
+        device=dev)
+    grid = ebdyc.generate_grid(bh, pad_quantum=ADV_PQ)
+    c = EmbeddedFunction.from_function(
+        ebdyc, lambda x, y: coupled_exact(x, y, 0.0))
+
+    def velocity(ec):
+        return (EmbeddedFunction.from_function(ec, lambda x, y: -y),
+                EmbeddedFunction.from_function(ec, lambda x, y: x))
+
+    stepper = CoupledAdvectionDiffusionStepper(ebdyc, velocity, ADV_NU,
+                                               ADV_DT, tol=GMRES_TOL)
+    print(f"# stepper: star({ADV_NB}, a=0.1, f=3), M={ADV_M}, grid "
+          f"{grid.shape}, pad_quantum {ADV_PQ} (pna {ebdyc.pna_x.size} of "
+          f"{ebdyc.phys_not_in_annulus.sum()} real), k = {stepper.k:g}, "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+    state = {"c": c}
+
+    def step():
+        state["c"] = stepper.step(state["c"])
+
+    for cnt in counters.values():
+        cnt.launches = 0
+    calls, per_step = [], []
+    for n in range(ADV_STEPS):
+        before = K.mh_slp_apply.launches
+        t0 = time.perf_counter()
+        if n == 1:
+            wall, busy, idle = profile_device(step, reps=1)
+            prof = (f"; profiled (profiler on): wall {wall:.3f} ms, device "
+                    f"{busy:.3f} ms, idle share {idle:.3f}")
+        elif n == 2:
+            calls = record_launch_args(step, K, "mh_slp_apply")
+            prof = ""
+        else:
+            step()
+            prof = ""
+        wall_s = time.perf_counter() - t0
+        per_step.append(K.mh_slp_apply.launches - before)
+        t = stepper.last_times
+        print(f"# stepper step {n + 1}/{ADV_STEPS}: generate "
+              f"{t['generate_s']:.3f} s, advect {t['advect_s']:.3f} s, setup "
+              f"{t['setup_s']:.3f} s, solve {t['solve_s']:.3f} s (step "
+              f"{wall_s:.3f} s), mh_slp launches {per_step[-1]}{prof}",
+              flush=True)
+    launches = {name: cnt.launches for name, cnt in counters.items()}
+    T_end = ADV_STEPS * ADV_DT
+    err = rel_err_all(stepper.ebdyc, state["c"],
+                      lambda x, y: coupled_exact(x, y, T_end))
+    mass = stepper.ebdyc.volume_integral(state["c"])
+    ref = IPDE_TPU_COUPLED_CPU
+    print(f"# stepper: rel err {err:.10e} after T={T_end:g} (ipde_tpu on the "
+          f"CPU {ref['rel_err']:.10e}, |diff| {abs(err - ref['rel_err']):.3e}"
+          f", limit {TOL_COUPLED_ABS:.0e}), final mass {mass:.15f} "
+          f"(ipde_tpu {ref['mass']:.15f}), recompiles {stepper.recompiles}, "
+          f"launches {launches}", flush=True)
+    if not (math.isfinite(err) and abs(err - ref["rel_err"])
+            <= TOL_COUPLED_ABS):
+        raise RuntimeError(f"stepper error {err:.10e} differs from ipde_tpu's "
+                           f"{ref['rel_err']:.10e} by more than "
+                           f"{TOL_COUPLED_ABS}")
+    if min(per_step) <= 0:
+        raise RuntimeError(f"a stepper step launched no mh_slp kernel: "
+                           f"{per_step}")
+    mh_err = hold_calls(
+        "stepper step 3", calls, K.mh_slp_apply, K.mh_slp_apply_plain,
+        laplace_err, lambda sx, sy, w, tx, ty, k: mh_bound_ms(
+            sx, sy, tx, ty, k), "one stepper step")
+    print(f"# stepper phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launches["mh_slp"], mh_err
+
+
+def unsteady_case(scheme, dt, steps, ebdyc):
+    """examples/unsteady_advection_study.py::run_case on the port: the
+    rotation of rate w(t) = 1 + 0.5 sin(2t) on the fixed boundary, history
+    from the exact solution; returns (error, seconds per step)."""
+    from ipde_tpu_torch.advection.semi_lagrangian import (
+        SecondOrderAdvector, SemiLagrangianAdvector, ThirdOrderAdvector)
+    from ipde_tpu_torch.functions import EmbeddedFunction
+
+    def exact(x, y, t):
+        a = t + 0.25 * (1.0 - np.cos(2.0 * t))
+        c, s = np.cos(a), np.sin(a)
+        X, Y = c * x + s * y, -s * x + c * y
+        return np.exp(np.sin(X)) * np.cos(Y + 0.3)
+
+    def vel(t):
+        w = 1.0 + 0.5 * np.sin(2.0 * t)
+        return (EmbeddedFunction.from_function(ebdyc, lambda x, y: -w * y),
+                EmbeddedFunction.from_function(ebdyc, lambda x, y: w * x))
+
+    def ex(t):
+        return EmbeddedFunction.from_function(
+            ebdyc, lambda x, y: exact(x, y, t))
+
+    class Hist:
+        def __init__(self, u, v, uo, vo):
+            self.u, self.v, self.uo, self.vo = u, v, uo, vo
+
+    f, fm1, fm2 = ex(0.0), ex(-dt), ex(-2 * dt)
+    t = 0.0
+    prev = None
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        u, v = vel(t)
+        if scheme == "fe":
+            adv = SemiLagrangianAdvector(ebdyc, u, v)
+            adv.generate(dt, fixed_boundary=True)
+            fn = adv(f)
+        elif scheme == "bdf2":
+            if prev is None:
+                prev = SemiLagrangianAdvector(ebdyc, *vel(t - dt))
+                prev.generate(dt, fixed_boundary=True)
+            adv = SecondOrderAdvector(ebdyc, u, v, prev)
+            adv.generate(dt, fixed_boundary=True)
+            fn = adv.advect_bdf2(f, fm1)
+        else:
+            adv = ThirdOrderAdvector(ebdyc, u, v,
+                                     Hist(*vel(t - dt), *vel(t - 2 * dt)))
+            adv.generate(dt)
+            fn = adv(f, fm1, fm2)
+        prev = adv
+        fm2, fm1, f = fm1, f, fn
+        t += dt
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    fa = ex(t)
+    ge = float((f.grid - fa.grid).abs()[ebdyc.phys_dev].max())
+    re = max(float((a - b).abs().max()) for a, b in zip(f.radials,
+                                                        fa.radials))
+    return max(ge, re), step_s
+
+
+def advector_phase(dev):
+    """FE, BDF2 and BDF3 of examples/unsteady_advection_study.py at
+    dt = UNSTEADY_DT to UNSTEADY_T, each error within TOL_UNSTEADY_REL of
+    ipde_tpu's on the CPU."""
+    from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
+    from ipde_tpu_torch.geometry.curve import circle
+    from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
+    t_phase = time.perf_counter()
+    bdy = circle(UNSTEADY_NB, r=1.0)
+    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / UNSTEADY_M)
+    ebdyc = EmbeddedBoundaryCollection(
+        [EmbeddedBoundary(bdy, True, UNSTEADY_M, bh, qfs_tolerance=1e-12)],
+        device=dev)
+    ebdyc.generate_grid(bh)
+    steps = int(round(UNSTEADY_T / UNSTEADY_DT))
+    for scheme, ref in IPDE_TPU_UNSTEADY_CPU.items():
+        err, step_s = unsteady_case(scheme, UNSTEADY_DT, steps, ebdyc)
+        gap = abs(err - ref) / ref
+        print(f"# advector {scheme}: circle({UNSTEADY_NB}), M={UNSTEADY_M}, "
+              f"grid {ebdyc.grid.shape}, dt {UNSTEADY_DT}, {steps} steps: "
+              f"error {err:.10e} (ipde_tpu on the CPU {ref:.10e}, relative "
+              f"difference {gap:.3e}, limit {TOL_UNSTEADY_REL}), "
+              f"{step_s:.3f} s per step", flush=True)
+        if not (math.isfinite(err) and gap <= TOL_UNSTEADY_REL):
+            raise RuntimeError(f"advector {scheme} error {err:.4e} is not "
+                               f"within {TOL_UNSTEADY_REL} of {ref:.4e}")
+    print(f"# advector phase {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+
+
+def tier2_interface_phase(dev):
+    """Bench tier 2's geometry and box: generate_grid (which builds the
+    interface plan through make_interpolator) must give a
+    PeriodicInterpolator2D; its values and from_modes_grad for one smooth
+    box-periodic field are held to ExactInterp2D on the same targets,
+    relative to the field's max, and both are timed."""
+    from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
+    from ipde_tpu_torch.geometry.curve import star
+    from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
+    from ipde_tpu_torch.ops.interp import ExactInterp2D, PeriodicInterpolator2D
+    t_phase = time.perf_counter()
+    bdy = star(TIER2_NB, a=0.2, f=5)
+    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / TIER2_M)
+    extent = float(bdy.x.max() - bdy.x.min())
+    bh = min(bh, extent / (TIER2_GRID_TARGET - 3 * TIER2_M))
+    ebdyc = EmbeddedBoundaryCollection(
+        [EmbeddedBoundary(bdy, True, TIER2_M, bh, qfs_tolerance=1e-14)],
+        device=dev)
+    t0 = time.perf_counter()
+    grid = ebdyc.generate_grid(bh)
+    torch.cuda.synchronize()
+    geo_s = time.perf_counter() - t0
+    plan = ebdyc.interface_interp
+    print(f"# tier-2 interface: star({TIER2_NB}, a=0.2, f=5), M={TIER2_M}, "
+          f"grid {grid.shape}, {plan.T} interface targets -> "
+          f"{type(plan).__name__} (sigma fine grid {plan.plan.nfx}x"
+          f"{plan.plan.nfy}, w {plan.w}); generate_grid {geo_s:.2f} s",
+          flush=True)
+    if not isinstance(plan, PeriodicInterpolator2D):
+        raise RuntimeError(f"the tier-2 interface plan is "
+                           f"{type(plan).__name__}, not PeriodicInterpolator2D")
+    tx, ty = ebdyc.transf(ebdyc.all_interface_x, ebdyc.all_interface_y)
+    t0 = time.perf_counter()
+    exact = ExactInterp2D(grid.Nx, grid.Ny, tx, ty, device=dev)
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    X = (grid.xg - grid.x_bounds[0]) / grid.x_period * 2 * np.pi
+    Y = (grid.yg - grid.y_bounds[0]) / grid.y_period * 2 * np.pi
+    f = torch.as_tensor(np.exp(np.sin(X)) * np.cos(2 * Y + 0.3), device=dev)
+    modes = torch.fft.fft2(f)
+    got = plan.from_modes_grad(modes)
+    want = exact.from_modes_grad(modes)
+    scale = float(f.abs().max())
+    gaps = [float((a - b).abs().max()) / scale for a, b in zip(got, want)]
+    vals_gap = float((plan.from_modes(modes) - want[0]).abs().max()) / scale
+    ms = cuda_ms(lambda: plan.from_modes_grad(modes))
+    exact_ms = cuda_ms(lambda: exact.from_modes_grad(modes))
+    print(f"# tier-2 interface: PeriodicInterpolator2D vs ExactInterp2D "
+          f"(relative to max|f| {scale:.4f}): values {vals_gap:.3e}, "
+          f"from_modes_grad value / d/dtx / d/dty "
+          f"{' / '.join(f'{g:.3e}' for g in gaps)} (limit "
+          f"{TOL_INTERFACE_REL:.0e}); from_modes_grad {ms:.4f} ms, exact "
+          f"{exact_ms:.4f} ms (its phase matrices built in {exact_s:.2f} s); "
+          f"phase {time.perf_counter() - t_phase:.2f} s", flush=True)
+    if not max(gaps + [vals_gap]) <= TOL_INTERFACE_REL:
+        raise RuntimeError("the tier-2 interface plan disagrees with "
+                           "ExactInterp2D")
+
+
 def main():
     t_start = time.perf_counter()
     # ---- phase 1: device, card, build ------------------------------------
@@ -1543,11 +1858,17 @@ def main():
                stokes_phase(dev, SK, counters),
                mh_phase(dev, K, counters)]
     launches, errs = multi_body_phase(dev, K, SK, counters)
+    # ---- phase 6: the moving-boundary path --------------------------------
+    stepper_launches, stepper_err = stepper_phase(dev, K, counters)
+    launches["mh_slp"] += stepper_launches
+    errs["mh_slp"] = max(errs["mh_slp"], stepper_err)
+    advector_phase(dev)
+    tier2_interface_phase(dev)
     for entry in kernels:
         entry["launches"] += launches[entry["name"]]
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[entry["name"]])
 
-    # ---- phase 6: results --------------------------------------------------
+    # ---- phase 7: results --------------------------------------------------
     print(f"# total {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

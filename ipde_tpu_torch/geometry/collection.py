@@ -15,12 +15,14 @@ import numpy as np
 import torch
 
 from ipde_tpu_torch.config import require_cuda
+from ipde_tpu_torch.functions import EmbeddedFunction
 from ipde_tpu_torch.geometry.curve import BoundaryCurve
 from ipde_tpu_torch.geometry.embedded_boundary import (EmbeddedBoundary,
                                                        load_embedded_boundary)
 from ipde_tpu_torch.geometry.grid import Grid
-from ipde_tpu_torch.ops.fourier import FourierPlan2D
-from ipde_tpu_torch.ops.interp import make_interpolator
+from ipde_tpu_torch.ops.fd import fd_x_4, fd_xx_4, fd_y_4, fd_yy_4
+from ipde_tpu_torch.ops.fourier import FourierPlan1D, FourierPlan2D
+from ipde_tpu_torch.ops.interp import PolyInterpolator2D, make_interpolator
 
 
 def grid_inside_mask(bdy: BoundaryCurve, grid: Grid) -> np.ndarray:
@@ -48,6 +50,47 @@ def grid_inside_mask(bdy: BoundaryCurve, grid: Grid) -> np.ndarray:
     # point (i, j) is inside iff the number of crossings at x > xv[i] is odd
     counts = np.cumsum(diff[::-1], axis=0)[::-1][1:]
     return (counts % 2) == 1
+
+
+def _cap(n: int, quantum: int) -> int:
+    """Smallest multiple of ``quantum`` >= max(n, 1)."""
+    return int(-(-max(n, 1) // quantum) * quantum)
+
+
+def _pad_repeat(a: np.ndarray, pad: int) -> np.ndarray:
+    """Pad with repeats of the first element (or 0 when empty)."""
+    fill = a[0] if a.size else 0.0
+    return np.concatenate([a, np.full(pad, fill, a.dtype)])
+
+
+def pad_index_set(idx: np.ndarray, coords, quantum: int, sentinel: int):
+    """Capacity padding of one index set and its coordinate arrays to the
+    next multiple of ``quantum`` (ipde_tpu's layout): the padded indices
+    are ``sentinel``, out of range of the array they scatter into, and the
+    padded coordinates repeat the first real one."""
+    pad = _cap(idx.size, quantum) - idx.size
+    return (np.concatenate([idx, np.full(pad, sentinel, idx.dtype)]),
+            [_pad_repeat(np.asarray(c), pad) for c in coords])
+
+
+def set_flat(flat: torch.Tensor, idx: torch.Tensor,
+             vals: torch.Tensor) -> torch.Tensor:
+    """A copy of ``flat`` (..., n) with flat[..., idx] = vals, where the
+    slots whose index is n are dropped: ``pad_quantum`` gives padded slots
+    that out-of-range index (ipde_tpu lets XLA's scatter drop them; torch's
+    indexing raises on them).  The scatter goes into a buffer one element
+    longer, whose last element is cut off."""
+    buf = torch.cat([flat, flat.new_zeros(flat.shape[:-1] + (1,))], dim=-1)
+    buf[..., idx] = vals
+    return buf[..., :-1]
+
+
+def add_flat(flat: torch.Tensor, idx: torch.Tensor,
+             vals: torch.Tensor) -> torch.Tensor:
+    """flat (n,) with vals added at idx, slots whose index is n dropped (as
+    set_flat)."""
+    buf = torch.cat([flat, flat.new_zeros(1)])
+    return buf.index_add(0, idx, vals)[:-1]
 
 
 class EmbeddedBoundaryCollection:
@@ -109,14 +152,21 @@ class EmbeddedBoundaryCollection:
                       verbose: bool = False,
                       pad_quantum: Optional[int] = None):
         """Register the background grid: masks, index sets, interpolation
-        plans.  pad_quantum (fixed-shape registrations for moving
-        boundaries) is not ported."""
-        if pad_quantum:
-            raise NotImplementedError(
-                "pad_quantum is not ported to ipde_tpu_torch "
-                "(ROADMAP.md Queue 1)")
+        plans.
+
+        pad_quantum: when set, every VARIABLE-SIZE point set this
+        registration produces (pna = physical-not-in-annulus points, and
+        each boundary's in-annulus grid point set) is capacity-padded to
+        the next multiple of pad_quantum, with the arrays and shapes of
+        ipde_tpu: padded slots carry the out-of-range flat index Nx*Ny and
+        a repeat of the first real coordinate.  Every scatter over these
+        index sets drops the padded slots (``set_flat``, ``add_flat``);
+        padded targets repeat a real point, which is harmless in a sum.
+        Successive registrations of a moving boundary then give plan
+        arrays of the same shapes (the stepper requires it, as ipde_tpu's
+        does)."""
         self.grid = grid
-        self.pad_quantum = None
+        self.pad_quantum = pad_quantum
         regs = [e.register_grid(grid, danger_zone_distance, verbose)
                 for e in self.ebdys]
         self.regs = regs
@@ -150,6 +200,10 @@ class EmbeddedBoundaryCollection:
         self.pna_flat = np.flatnonzero(self.phys_not_in_annulus)
         self.pna_x = grid.xg[self.phys_not_in_annulus]
         self.pna_y = grid.yg[self.phys_not_in_annulus]
+        if pad_quantum:
+            self.pna_flat, (self.pna_x, self.pna_y) = pad_index_set(
+                self.pna_flat, (self.pna_x, self.pna_y), pad_quantum,
+                grid.Nx * grid.Ny)
         self.pna_flat_dev = self._dev(self.pna_flat, torch.int64)
         self.pna_x_dev = self._dev(self.pna_x)
         self.pna_y_dev = self._dev(self.pna_y)
@@ -193,13 +247,17 @@ class EmbeddedBoundaryCollection:
         self.radial_to_grid_plans = []
         self.ia_flat_list = []
         for e, reg in zip(self.ebdys, regs):
-            theta = e.nufft_theta(reg.ia_r)
-            plan = make_interpolator(2 * e.M, e.bdy.N, theta, reg.ia_t,
+            ia_r, ia_t = reg.ia_r, reg.ia_t
+            ia_flat = reg.ia_ix * grid.Ny + reg.ia_iy
+            if pad_quantum:
+                ia_flat, (ia_r, ia_t) = pad_index_set(
+                    ia_flat, (ia_r, ia_t), pad_quantum, grid.Nx * grid.Ny)
+            theta = e.nufft_theta(ia_r)
+            plan = make_interpolator(2 * e.M, e.bdy.N, theta, ia_t,
                                      x_offset=np.pi / (2 * e.M),
                                      device=self.device)
             self.radial_to_grid_plans.append(plan)
-            self.ia_flat_list.append(
-                self._dev(reg.ia_ix * grid.Ny + reg.ia_iy, torch.int64))
+            self.ia_flat_list.append(self._dev(ia_flat, torch.int64))
         self.bumpy = None
 
     def phys_extremes(self) -> np.ndarray:
@@ -238,10 +296,20 @@ class EmbeddedBoundaryCollection:
         views."""
         return list(torch.split(v, self.bdy_Ns))
 
+    def interpolate_grid_to_interface_modes(self, modes):
+        """Interpolate (stacked) fft2 mode arrays to all interface points."""
+        return self.interface_interp.from_modes(modes)
+
+    def interpolate_grid_to_interface(self, f):
+        """Interpolate (stacked) real grid arrays to all interface points."""
+        return self.interface_interp(f)
+
     def interface_values_and_grads(self, modes):
         """Values and physical-coordinate gradients of the (B, nx, ny) mode
-        stack at all interface points, from one exact evaluation with the
-        derivatives folded into the phases.  Returns (vals, ddx, ddy), each
+        stack at all interface points, from the interface plan's
+        ``from_modes_grad``: exact trigonometric differentiation
+        (``ExactInterp2D``) or the window derivatives of one fine transform
+        (``PeriodicInterpolator2D``).  Returns (vals, ddx, ddy), each
         (B, T)."""
         vals, dtx, dty = self.interface_interp.from_modes_grad(modes)
         sx = 2.0 * np.pi / self.grid.x_period
@@ -252,27 +320,26 @@ class EmbeddedBoundaryCollection:
         """Write radial-grid functions onto their in-annulus grid points.
         radials: list of (M, N_b) tensors; grid_vals: (Nx, Ny); returns a new
         grid tensor."""
-        flat = grid_vals.reshape(-1).clone()
-        for plan, idx, fr in zip(self.radial_to_grid_plans,
-                                 self.ia_flat_list, radials):
-            refl = torch.cat([fr, fr.flip(0)], dim=0)
-            flat[idx] = plan(refl)
-        return flat.reshape(grid_vals.shape)
+        return self.interpolate_radial_to_grid_many([radials], [grid_vals])[0]
 
     def interpolate_radial_to_grid_many(self, radials_list, grid_vals_list):
         """interpolate_radial_to_grid for F fields at once: each
         per-boundary plan evaluates all F fields in one call.
         radials_list: per-field lists of per-boundary (M, N_b) radials;
         grid_vals_list: F (Nx, Ny) grids; returns F new grid tensors."""
-        flats = [g.reshape(-1).clone() for g in grid_vals_list]
+        flats = torch.stack([g.reshape(-1) for g in grid_vals_list])
         for b, (plan, idx) in enumerate(zip(self.radial_to_grid_plans,
                                             self.ia_flat_list)):
             refls = torch.stack([torch.cat([fr[b], fr[b].flip(0)], dim=0)
                                  for fr in radials_list])
-            for flat, vals in zip(flats, plan(refls)):
-                flat[idx] = vals
+            flats = set_flat(flats, idx, plan(refls))
         return [flat.reshape(g.shape)
                 for flat, g in zip(flats, grid_vals_list)]
+
+    def interpolate_radial_to_boundary(self, radials):
+        """Boundary values (N_b,) of each boundary's radial function."""
+        return [self._dev(e.interp_f_to_bdy) @ fr
+                for e, fr in zip(self.ebdys, radials)]
 
     # ------------------------------------------------------------------
     # bump de-meaning (Poisson solvability on the periodic box)
@@ -295,6 +362,93 @@ class EmbeddedBoundaryCollection:
     def demean_function(self, f):
         f_int = f.sum() * (self.grid.xh * self.grid.yh)
         return f - f_int * self.bumpy
+
+    # ------------------------------------------------------------------
+    # calculus on EmbeddedFunctions
+    # ------------------------------------------------------------------
+    def gradient(self, ef: EmbeddedFunction,
+                 derivative_type: str = "spectral"):
+        """Gradient: spectral (FFT) or 4th-order FD on the grid; exact
+        curvilinear derivatives on the radial grids (reference:
+        ipde/ebdy_collection.py:711-753)."""
+        fc = ef.grid * self.grid_step_dev
+        if derivative_type == "spectral":
+            fx = self.fft_plan.deriv_x(fc, self.kx_dev)
+            fy = self.fft_plan.deriv_y(fc, self.ky_dev)
+        elif derivative_type == "fourth":
+            fx = fd_x_4(fc, self.grid.xh)
+            fy = fd_y_4(fc, self.grid.yh)
+        else:
+            raise ValueError(derivative_type)
+        fxrs, fyrs = [], []
+        for e, fr in zip(self.ebdys, ef.radials):
+            fxr, fyr = self._radial_gradient(e, fr)
+            fxrs.append(fxr)
+            fyrs.append(fyr)
+        fx, fy = self.interpolate_radial_to_grid_many([fxrs, fyrs], [fx, fy])
+        return (EmbeddedFunction(fx * self.phys_dev, fxrs),
+                EmbeddedFunction(fy * self.phys_dev, fyrs))
+
+    def laplacian(self, ef: EmbeddedFunction,
+                  derivative_type: str = "spectral") -> EmbeddedFunction:
+        """Laplacian; grid part spectral or 4th-order FD, radial part via the
+        curvilinear metric lap u = u_rr + (psi_r/psi) u_r +
+        (1/psi) d_t(u_t / psi) (reference: ipde/ebdy_collection.py:754-792,
+        embedded_boundary.py:478-517)."""
+        fc = ef.grid * self.grid_step_dev
+        if derivative_type == "spectral":
+            fl = self.fft_plan.solve_symbol(fc, self._dev(self.lap))
+        elif derivative_type == "fourth":
+            fl = fd_xx_4(fc, self.grid.xh) + fd_yy_4(fc, self.grid.yh)
+        else:
+            raise ValueError(derivative_type)
+        flrs = [self._radial_laplacian(e, fr)
+                for e, fr in zip(self.ebdys, ef.radials)]
+        fl = self.interpolate_radial_to_grid(flrs, fl) * self.phys_dev
+        return EmbeddedFunction(fl, flrs)
+
+    def interpolate_grid_to_radial(self, f, order: int = 3):
+        """Interpolate a (smooth-everywhere!) grid function onto each radial
+        grid by periodic polynomial interpolation (reference:
+        ipde/ebdy_collection.py:630-648; useful for initialization only --
+        the grid function must be smooth across the boundaries)."""
+        g = self.grid
+        f = self._dev(f) if not isinstance(f, torch.Tensor) else f
+        out = []
+        for e in self.ebdys:
+            interp = PolyInterpolator2D(
+                g.x_bounds[0], g.y_bounds[0], g.xh, g.yh, g.Nx, g.Ny,
+                e.radial_x.ravel(), e.radial_y.ravel(), order=order,
+                device=self.device)
+            out.append(interp(f).reshape(e.radial_shape))
+        return out
+
+    def _radial_gradient(self, e: EmbeddedBoundary, fr):
+        plan = FourierPlan1D(e.bdy.N, device=self.device)
+        ft = plan.tderiv(fr) * self._dev(e.inverse_radial_speed)
+        frr = self._dev(e.D00) @ fr
+        b = e.bdy
+        return (frr * self._dev(b.normal_x) + ft * self._dev(b.tangent_x),
+                frr * self._dev(b.normal_y) + ft * self._dev(b.tangent_y))
+
+    def _radial_laplacian(self, e: EmbeddedBoundary, fr):
+        plan = FourierPlan1D(e.bdy.N, device=self.device)
+        D00 = self._dev(e.D00)
+        ipsi = self._dev(e.inverse_radial_speed)
+        psi_r = self._dev(e.bdy.speed * e.bdy.curvature)    # (n,)
+        u_r = D00 @ fr
+        u_rr = D00 @ u_r
+        u_t = plan.tderiv(fr)
+        return u_rr + psi_r * ipsi * u_r + ipsi * plan.tderiv(u_t * ipsi)
+
+    def volume_integral(self, ef: EmbeddedFunction) -> float:
+        """Integral of ef over the physical domain: the rolled-off grid part
+        on the box plus each radial part with its quadrature."""
+        val = float((ef.grid * self.grid_step_dev).sum()
+                    * self.grid.xh * self.grid.yh)
+        for e, fr in zip(self.ebdys, ef.radials):
+            val += e.radial_integral(fr.cpu().numpy())
+        return val
 
     # ------------------------------------------------------------------
     def save(self) -> dict:

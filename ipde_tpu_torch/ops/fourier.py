@@ -1,10 +1,12 @@
 """Fourier transforms and spectral operators on torch.fft (complex128).
 
 The box solve's 2D transform (``FourierPlan2D``, with batched stacks of
-fields, and the half-spectrum forms the free-space grid evaluators use),
-the 1D last-axis derivative (``FourierPlan1D``) and the annular solvers'
-tangential plan (``tan_rfft`` / ``tan_irfft`` / ``tan_deriv`` along the last
-axis) with the frequency helpers.  Reference semantics:
+fields, the half-spectrum forms the free-space grid evaluators use, and
+spectral derivatives and symbol solves), the 1D last-axis transform and
+derivatives (``FourierPlan1D``), a 1D Fourier filter
+(``SimpleFourierFilter``) and the annular solvers' tangential plan
+(``tan_rfft`` / ``tan_irfft`` / ``tan_deriv`` along the last axis) with the
+frequency helpers.  Reference semantics:
 ipde/utilities.py:78-124 (Nyquist handling).
 """
 
@@ -36,17 +38,32 @@ def spectral_diff_matrix_np(n: int, order: int = 1,
 
 
 class FourierPlan1D:
-    """Spectral derivative along the LAST axis of a real tensor (period
-    ``length``) with the Nyquist mode zeroed: the real differentiation
-    circulant of ipde_tpu.ops.fourier.FourierPlan1D, on torch.fft."""
+    """1D DFT along the LAST axis of a real tensor (period ``length``):
+    ``rfft`` maps (..., n) to complex (..., n//2 + 1), ``irfft`` inverts it
+    (the imaginary parts of the zero and Nyquist modes are ignored), and the
+    derivatives apply the real differentiation circulants of
+    ipde_tpu.ops.fourier.FourierPlan1D (Nyquist mode zeroed for the first
+    derivative, kept for the second), on torch.fft."""
 
     def __init__(self, n: int, length: float = 2.0 * np.pi, *, device):
         self.n = n
         self.tan = TanPlan(n, device, length)
+        k = rfftfreq_np(n, length / (2.0 * np.pi * n))
+        self._k2 = torch.as_tensor(-k * k, dtype=torch.float64, device=device)
+
+    def rfft(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.fft.rfft(x, dim=-1)
+
+    def irfft(self, c: torch.Tensor) -> torch.Tensor:
+        return torch.fft.irfft(c, n=self.n, dim=-1)
 
     def tderiv(self, x: torch.Tensor) -> torch.Tensor:
         """d/dt along the last axis."""
         return tan_deriv(x, self.tan)
+
+    def tderiv2(self, x: torch.Tensor) -> torch.Tensor:
+        """d^2/dt^2 along the last axis."""
+        return self.irfft(self.rfft(x) * self._k2)
 
 
 class FourierPlan2D:
@@ -96,6 +113,19 @@ class FourierPlan2D:
         z = torch.fft.ifft(c, dim=-1)[..., ny0:ny0 + ny_out]
         return torch.fft.irfft(z, n=self.nx, dim=-2)[..., nx0:nx0 + nx_out, :]
 
+    def solve_symbol(self, f: torch.Tensor, symbol) -> torch.Tensor:
+        """ifft2(fft2(f) * symbol).real for real f and a real symbol."""
+        return self.ifft2_real(self.fft2(f) * symbol)
+
+    def deriv_x(self, f: torch.Tensor, kx) -> torch.Tensor:
+        """Spectral x-derivative of real f; kx is the fftfreq column
+        (nx, 1)."""
+        return self.ifft2_real(self.fft2(f) * (1j * kx))
+
+    def deriv_y(self, f: torch.Tensor, ky) -> torch.Tensor:
+        """Spectral y-derivative of real f; ky is the fftfreq row (1, ny)."""
+        return self.ifft2_real(self.fft2(f) * (1j * ky))
+
 
 class TanPlan:
     """Last-axis real FFT plan: derivative wavenumbers with the Nyquist mode
@@ -129,3 +159,28 @@ def tan_irfft(c: torch.Tensor, tp: TanPlan) -> torch.Tensor:
 def tan_deriv(x: torch.Tensor, tp: TanPlan) -> torch.Tensor:
     """d/dt along the last axis via rfft -> ik -> irfft."""
     return tan_irfft(tan_rfft(x, tp) * tp.ik, tp)
+
+
+class SimpleFourierFilter:
+    """Fourier-space filter of periodic 1D data along the last axis
+    (reference: ipde/utilities.py:126-162): ``"fraction"`` keeps the modes
+    |k| <= fraction * max|k|, ``"rule 36"`` multiplies by
+    exp(-power (|k| / max|k|)^power), power 36 by default."""
+
+    def __init__(self, n: int, filter_type: str = "fraction", *, device,
+                 **kwargs):
+        self.plan = FourierPlan1D(n, device=device)
+        k = np.abs(rfftfreq_np(n, 1.0 / n))
+        max_k = k.max()
+        if filter_type == "fraction":
+            filt = np.ones_like(k)
+            filt[k > max_k * kwargs["fraction"]] = 0.0
+        elif filter_type == "rule 36":
+            p = kwargs.get("power", 36)
+            filt = np.exp(-p * (k / max_k) ** p)
+        else:
+            raise ValueError(f"unknown filter type {filter_type}")
+        self.filt = torch.as_tensor(filt, dtype=torch.float64, device=device)
+
+    def __call__(self, f: torch.Tensor) -> torch.Tensor:
+        return self.plan.irfft(self.plan.rfft(f) * self.filt)

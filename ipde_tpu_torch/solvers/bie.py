@@ -247,6 +247,21 @@ class NeumannBIE(_ScalarBIE):
         return self._add_fields(ue, xis)
 
 
+def solve_dirichlet(solver: ScalarSolver, f: EmbeddedFunction,
+                    bc: BoundaryFunction, bie: DirichletBIE = None,
+                    **kw) -> EmbeddedFunction:
+    """Convenience: full inhomogeneous solve + Dirichlet BC in one call
+    (``kw`` go to the solver: tol, maxiter, restart, verbose).  The port's
+    GMRES checks its TRUE residual against tol and raises above it; its
+    float64 floor is about 3e-14, so the reference's tol=1e-14 raises
+    instead of returning a solution: pass tol >= 1e-13 (the solver's default
+    is 1e-12)."""
+    if bie is None:
+        bie = DirichletBIE(solver)
+    ue = solver(f, **kw)
+    return bie.apply_bc(ue, bc)
+
+
 class StokesDirichletBIE:
     """Dense velocity-Dirichlet BIE for a StokesSolver's boundary
     collection (one interior boundary and any number of inclusions); its

@@ -40,7 +40,8 @@ import torch
 
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
-from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
+from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
+                                                add_flat)
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import kernels, singular as sq
 from ipde_tpu_torch.ops.grid_eval import FreespaceGridEvaluator
@@ -340,7 +341,7 @@ class ScalarSolver:
         else:
             out = self._apply_merged(sigma_g, self._dense_tx, self._dense_ty)
             n_pna = ebdyc.pna_x.size
-            uc = uc.reshape(-1).index_add(0, self._pna_flat, out[:n_pna])\
+            uc = add_flat(uc.reshape(-1), self._pna_flat, out[:n_pna])\
                 .reshape(ebdyc.grid.shape)
             bus = ebdyc.v2l(out[n_pna:])
         # per-boundary radial corrections

@@ -39,7 +39,8 @@ import torch
 
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
-from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
+from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
+                                                add_flat)
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import stokes_kernels as sk
 from ipde_tpu_torch.ops.fourier import FourierPlan1D
@@ -374,7 +375,7 @@ class StokesSolver:
                 self._dense_ty)
             n_pna = ebdyc.pna_x.size
             idx = ebdyc.pna_flat_dev
-            uc, vc, pc = (c.reshape(-1).index_add(0, idx, g[:n_pna])
+            uc, vc, pc = (add_flat(c.reshape(-1), idx, g[:n_pna])
                           .reshape(c.shape) for c, g in ((uc, gu), (vc, gv),
                                                          (pc, gp)))
             giu, giv, gip = gu[n_pna:], gv[n_pna:], gp[n_pna:]

@@ -155,11 +155,16 @@ def test_collection_device_is_explicit():
             with pytest.raises(RuntimeError, match="no CUDA device"):
                 make()
     assert EmbeddedBoundaryCollection([], device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        bdy = star(NB, a=0.1, f=3)
-        EmbeddedBoundaryCollection(
-            [EmbeddedBoundary(bdy, True, M, _bh(bdy))], device="cpu"
-        ).generate_grid(_bh(bdy), pad_quantum=256)
+    # pad_quantum is ported: the padded sets sit on the named device, padded
+    # to a multiple of the quantum with the out-of-range index Nx * Ny
+    bdy = star(NB, a=0.1, f=3)
+    tc = EmbeddedBoundaryCollection(
+        [EmbeddedBoundary(bdy, True, M, _bh(bdy))], device="cpu")
+    tc.generate_grid(_bh(bdy), pad_quantum=256)
+    n_real = int(tc.phys_not_in_annulus.sum())
+    assert tc.pad_quantum == 256 and tc.pna_flat.size % 256 == 0
+    assert (tc.pna_flat[n_real:] == tc.grid.Nx * tc.grid.Ny).all()
+    assert tc.pna_flat_dev.device.type == "cpu"
 
 
 def test_functions_match_and_roundtrip(pair):

@@ -96,7 +96,44 @@ phase prints its seconds):
          values and window derivatives for one smooth field must be within
          1e-12 (of the field's max) of ExactInterp2D on the same targets;
          both timed.
-  7. print the kernels' JSON line, the card's name and power limit, then
+  7. solver_type="fourth", the periodic evaluator and the example scripts:
+       - fourth-order Poisson on phase 2's collection (PoissonSolver(...,
+         solver_type="fourth"), fft grid backend, DirichletBIE): error
+         within 1% (either side) of ipde_tpu's CPU error on the same
+         problem (IPDE_TPU_FOURTH_CPU, from
+         tools/ipde_tpu_fourth_reference.py) and < 5e-6 (tests/test_collection_calculus.py:97), residual <= tol,
+         laplace_slp launches; the timing lines of the other phases with
+         phase 2's spectral error beside them; every distinct launch held
+         to the plain version, timed, two runs bit for bit;
+       - fourth-order Stokes on phase 5's stokes_3body collection: velocity
+         error within 1% of ipde_tpu's CPU error with the port's BIE radial
+         plans and < 2e-5 (tests/test_collection_calculus.py:123),
+         stokes_slp launches, the same lines and holds;
+       - the periodic evaluator on a 1024 x 1024 grid of [0, 2 pi]^2, 3,600
+         sources on a star and 16 within r_cut of an edge or a corner:
+         Yukawa (kappa = 20) against the mh_slp sum over 3 x 3 image shifts
+         at every grid point farther than 6 h from every source, Laplace
+         (non-neutral and neutral charges) against an independent Ewald sum
+         at 240 such points, absolute error <= 1e-9 (the limit of
+         tests/test_periodic_grid_eval.py), two runs bit for bit; setup and
+         the apply's median of 10 beside a FreespaceGridEvaluator's;
+       - the smallest default row of examples/torch_poisson_refinement.py
+         (200, 8), torch_mh_neumann_refinement.py (k = 1: 200, 10),
+         torch_advection_convergence.py (dt = 0.1, nb = 200, M = 10,
+         T = 0.2; FE and BDF2) through their own run_case on the card,
+         and torch_stokes_refinement.py (100, 8) with its REFERENCE_ERR
+         rule, each within 1% of ipde_tpu's CPU value
+         (IPDE_TPU_EXAMPLES_CPU; for the Stokes row ipde_tpu with the
+         port's BIE radial plans); the LEDGER_TPU.json rows printed beside
+         them; they record nothing;
+       - ipde_tpu_torch.entry.entry(): one fn(*args) on the card, its error
+         against the analytic solution < 2e-6;
+       every launch of each example run and of entry() recorded and, after
+       the run, each distinct (T, S) held to the plain version (<= 1e-12
+       relative), timed beside its bound, two runs bit for bit.
+     Each solve of the phase runs with every count set to 0 just before it
+     and read just after; its launches join the kernels' JSON line.
+  8. print the kernels' JSON line, the card's name and power limit, then
      the device JSON line last.
 The four solves above run with grid_backend="dense": the merged sigma_g and
 the BIE field go onto the physical grid points through the CUDA kernels.
@@ -141,6 +178,7 @@ in each (counted on the card with the plain code's z).
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -217,6 +255,33 @@ OPS_PER_PAIR = {"laplace_slp": 9, "stokes_slp": 22, "laplace_grad": 12}
 # Clenshaw steps of (sub, FMA), the last (sub, FMA), exp, sqrt, 2 mul
 # (+87); dead (z > 36): the compare (+1)
 MH_OPS_PER_PAIR = {"series": 82, "cheb": 98, "dead": 12}
+# phase 7: ipde_tpu's errors on the CPU, unrounded, from
+#   JAX_PLATFORMS=cpu python tools/ipde_tpu_fourth_reference.py
+# solver_type="fourth" on phase 2's Poisson problem and on phase 5's
+# stokes_3body (with the port's BIE radial plans); the port is held to
+# each within 1% (either side) and below the asserts of
+# tests/test_collection_calculus.py:97, 123
+IPDE_TPU_FOURTH_CPU = {"poisson": 1.905043139904805e-08,
+                       "stokes_3body": 2.4820868565339493e-07}
+TOL_FOURTH_REL = 0.01
+TOL_FOURTH = {"poisson": 5e-6, "stokes_3body": 2e-5}
+# the smallest default row of four example scripts (same tool, --cases
+# examples: three through their own run_case, stokes_refinement's (100, 8)
+# with the port's BIE radial plans); the port is held to each within 1%
+IPDE_TPU_EXAMPLES_CPU = {"poisson_refinement": 2.8318152933692886e-08,
+                         "mh_neumann_refinement": 9.958260460685153e-08,
+                         "advection_convergence_fe": 0.01295928864308804,
+                         "advection_convergence_bdf2": 0.008691227226839793,
+                         "stokes_refinement": 1.3272890538151838e-05}
+TOL_EXAMPLE_REL = 0.01
+# the periodic evaluator: a 1024 x 1024 grid of [0, 2 pi]^2, 3,600 sources
+# on a star plus 16 within r_cut of an edge or a corner; Yukawa at kappa =
+# 20 against the mh_slp sum over 3 x 3 image shifts, Laplace against an
+# independent Ewald sum; absolute limit of tests/test_periodic_grid_eval.py
+PERIODIC_N, PERIODIC_S, PERIODIC_KAPPA = 1024, 3600, 20.0
+TOL_PERIODIC = 1e-9
+# what earlier phases leave for phase 7 to reuse (collections, errors)
+SHARED = {}
 
 
 def sol(x, y):
@@ -645,6 +710,7 @@ def scalar_fft_run(label, make_solver, bie_cls, f, bc, exact, limit,
     (ue, stats), launches, first_s, warm = timed_runs(run, counters)
     grid_err, rad_err = max_err(ebdyc, ue, exact)
     err = max(grid_err, rad_err)
+    SHARED[f"{label}_fft_err"] = err
     resid = stats["annular_residuals"][0]
     print(f"# {label} [fft] solve: {stats['annular_iterations'][0]} GMRES "
           f"iterations, residual {resid:.3e}, max error {err:.3e} (grid "
@@ -820,6 +886,7 @@ def poisson_phase(dev, K, counters):
     ebdyc, grid, f, bc, solver, bie = build_problem(dev, backend="dense")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    SHARED["poisson"] = (ebdyc, f, bc)
     dof = int(ebdyc.phys.sum() + np.prod(ebdyc.ebdys[0].radial_shape))
     print(f"# poisson setup {setup_s:.2f} s: grid {grid.shape}, {dof} dof, "
           f"{solver.grid_src_x.shape[0]} merged QFS sources", flush=True)
@@ -1391,6 +1458,40 @@ def multi_problems():
          scalar_run, scalar_check(sol, TOL_INCLUSION)))
 
 
+def kernel_holds(K, SK):
+    """(module, wrapper name, plain version, error measure, bound) of each
+    kernel the solvers launch, as hold_distinct_launches takes them."""
+    return {"stokes_slp": (SK, "stokes_slp_apply", SK.stokes_slp_apply_plain,
+                           stokes_err,
+                           lambda sx, sy, wfx, wfy, tx, ty: bound_ms(
+                               "stokes_slp", sx.shape[0], tx.shape[0])),
+            "mh_slp": (K, "mh_slp_apply", K.mh_slp_apply_plain, laplace_err,
+                       lambda sx, sy, w, tx, ty, k: mh_bound_ms(
+                           sx, sy, tx, ty, k)),
+            "laplace_slp": (K, "laplace_slp_apply", K.laplace_slp_apply_plain,
+                            laplace_err,
+                            lambda sx, sy, w, tx, ty: bound_ms(
+                                "laplace_slp", sx.shape[0], tx.shape[0]))}
+
+
+def record_all_launch_args(fn, holds):
+    """``fn()`` run once with each kernel of ``holds`` (kernel_holds)
+    wrapped by record_launch_args; returns (its result, the recorded calls
+    by kernel name)."""
+    names, out, calls = list(holds), [], {}
+
+    def run(i=0):
+        if i == len(names):
+            out.append(fn())
+        else:
+            module, attr = holds[names[i]][:2]
+            calls[names[i]] = record_launch_args(lambda: run(i + 1), module,
+                                                 attr)
+
+    run()
+    return out[0], calls
+
+
 def hold_distinct_launches(label, run, module, name, plain, err, bound_of):
     """Every launch of ``module.name`` in one run of ``run`` (one solve +
     apply_bc), held by hold_calls.  Returns the largest max abs difference
@@ -1475,17 +1576,7 @@ def multi_body_phase(dev, K, SK, counters):
     from ipde_tpu_torch.solvers.annular_scalar import batched_annular_solve
     from ipde_tpu_torch.solvers.annular_stokes import batched_stokes_solve
     t_phase = time.perf_counter()
-    holds = {"stokes_slp": (SK, "stokes_slp_apply", SK.stokes_slp_apply_plain,
-                            stokes_err,
-                            lambda sx, sy, wfx, wfy, tx, ty: bound_ms(
-                                "stokes_slp", sx.shape[0], tx.shape[0])),
-             "mh_slp": (K, "mh_slp_apply", K.mh_slp_apply_plain, laplace_err,
-                        lambda sx, sy, w, tx, ty, k: mh_bound_ms(
-                            sx, sy, tx, ty, k)),
-             "laplace_slp": (K, "laplace_slp_apply", K.laplace_slp_apply_plain,
-                             laplace_err,
-                             lambda sx, sy, w, tx, ty: bound_ms(
-                                 "laplace_slp", sx.shape[0], tx.shape[0]))}
+    holds = kernel_holds(K, SK)
     launches = {name: 0 for name in counters}
     errs = {name: 0.0 for name in counters}
     kept = {}
@@ -1494,6 +1585,7 @@ def multi_body_phase(dev, K, SK, counters):
         t0 = time.perf_counter()
         ebdyc, grid, data = build(dev)
         geo_s = time.perf_counter() - t0
+        SHARED[label] = (ebdyc, data)
         dof = int(ebdyc.phys.sum() + sum(np.prod(e.radial_shape)
                                          for e in ebdyc))
         print(f"# {label} collection {geo_s:.2f} s: grid {grid.shape}, {dof} "
@@ -1822,6 +1914,421 @@ def tier2_interface_phase(dev):
                            "ExactInterp2D")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: solver_type="fourth", the periodic evaluator, the example scripts
+# ---------------------------------------------------------------------------
+
+def fourth_run(label, setup_s, run, check, counters, kname, held, beside):
+    """One fourth-order solve + apply_bc on a collection of an earlier
+    phase: ``run()`` driven with every count set to 0 just before and read
+    just after; its error from ``check`` must be within 1% of ipde_tpu's
+    CPU error (either side) and below the reference test's assert, its
+    residual <= tol, with
+    ``kname`` launches; the timing lines of the other phases; every distinct
+    launch held by hold_distinct_launches(*held).  Returns (launches by
+    kernel, max abs difference from the plain version)."""
+    (out, stats), launches, first_s, warm = timed_runs(run, counters)
+    err, text = check(out)
+    ref = IPDE_TPU_FOURTH_CPU[label]
+    gap = abs(err / ref - 1.0)
+    resid = max(stats["annular_residuals"])
+    print(f"# fourth {label} solve: GMRES iterations "
+          f"{stats['annular_iterations']}, max residual {resid:.3e}, {text} "
+          f"(ipde_tpu on the CPU {ref:.10e}, ratio {err / ref:.7f}, "
+          f"|err - ipde_tpu| {abs(err - ref):.3e}; limits |ratio - 1| <= "
+          f"{TOL_FOURTH_REL} and err < {TOL_FOURTH[label]:g}); {beside}; "
+          f"launches {launches}", flush=True)
+    if not (math.isfinite(err) and gap <= TOL_FOURTH_REL
+            and err < TOL_FOURTH[label]):
+        raise RuntimeError(f"fourth {label} error {err:.6e} is not within "
+                           f"{TOL_FOURTH_REL} of ipde_tpu's {ref:.6e} or "
+                           f"not below {TOL_FOURTH[label]:g}")
+    if not resid <= GMRES_TOL:
+        raise RuntimeError(f"fourth {label} annular GMRES residual "
+                           f"{resid:.3e} > {GMRES_TOL}")
+    if launches[kname] <= 0:
+        raise RuntimeError(f"the fourth {label} solve launched no {kname} "
+                           "kernel")
+    report_backend(f"fourth {label}", "fft", setup_s, first_s, warm, run)
+    return launches, hold_distinct_launches(f"fourth {label}", run, *held)
+
+
+def fourth_phase(K, SK, counters):
+    """solver_type="fourth" on phase 2's Poisson collection and phase 5's
+    stokes_3body collection (fft grid backend); returns (launches by
+    kernel, max abs difference from the plain version by kernel)."""
+    from ipde_tpu_torch.solvers.bie import DirichletBIE, StokesDirichletBIE
+    from ipde_tpu_torch.solvers.scalar import PoissonSolver
+    from ipde_tpu_torch.solvers.vector import StokesSolver
+    launches = {name: 0 for name in counters}
+    errs = {name: 0.0 for name in counters}
+
+    ebdyc, f, bc = SHARED["poisson"]
+    t0 = time.perf_counter()
+    solver = PoissonSolver(ebdyc, solver_type="fourth")
+    bie = DirichletBIE(solver)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def poisson_run():
+        ue, stats = solver.solve_with_stats(f, tol=GMRES_TOL, maxiter=100,
+                                            restart=30)
+        ue = bie.apply_bc(ue, bc)
+        torch.cuda.synchronize()
+        return ue, stats
+
+    def poisson_check(ue):
+        g, r = max_err(ebdyc, ue, sol)
+        return max(g, r), (f"max error {max(g, r):.10e} (grid {g:.3e}, "
+                           f"radial {r:.3e})")
+
+    got, errs["laplace_slp"] = fourth_run(
+        "poisson", setup_s, poisson_run, poisson_check, counters,
+        "laplace_slp",
+        (K, "laplace_slp_apply", K.laplace_slp_apply_plain, laplace_err,
+         lambda sx, sy, w, tx, ty: bound_ms("laplace_slp", sx.shape[0],
+                                            tx.shape[0])),
+        f"phase 2's spectral [fft] error on this collection "
+        f"{SHARED['poisson_fft_err']:.4e}")
+    for name, n in got.items():
+        launches[name] += n
+
+    ebdyc, ((fu, fv), bcs) = SHARED["stokes_3body"]
+    t0 = time.perf_counter()
+    solver = StokesSolver(ebdyc, solver_type="fourth")
+    bie = StokesDirichletBIE(solver)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    def stokes_run():
+        (u, v, p), stats = solver.solve_with_stats(
+            fu, fv, tol=GMRES_TOL, maxiter=100, restart=30)
+        out = bie.apply_bc(u, v, p, *bcs)
+        torch.cuda.synchronize()
+        return out, stats
+
+    def stokes_check(out):
+        (ug, ur), (vg, vr) = (max_err_all(ebdyc, out[0], usol),
+                              max_err_all(ebdyc, out[1], vsol))
+        err = max(ug, vg, *ur, *vr)
+        radial = ", ".join(f"{max(a, b):.3e}" for a, b in zip(ur, vr))
+        return err, (f"velocity error {err:.10e} (grid {max(ug, vg):.3e}, "
+                     f"radial {radial})")
+
+    got, errs["stokes_slp"] = fourth_run(
+        "stokes_3body", setup_s, stokes_run, stokes_check, counters,
+        "stokes_slp",
+        (SK, "stokes_slp_apply", SK.stokes_slp_apply_plain, stokes_err,
+         lambda sx, sy, wfx, wfy, tx, ty: bound_ms(
+             "stokes_slp", sx.shape[0], tx.shape[0])),
+        f"the spectral solve of phase 5 on this case (ipde_tpu, CPU) "
+        f"{IPDE_TPU_STOKES3_CPU['port']:.4e}")
+    for name, n in got.items():
+        launches[name] += n
+    return launches, errs
+
+
+def periodic_sources():
+    """PERIODIC_S sources on star(S, x=pi, y=pi, r=2, a=0.2, f=5) with its
+    quadrature weights, then 16 within r_cut of an edge (8) or a corner (8)
+    with the weights' mean; N(0, 1) densities times the weights."""
+    from ipde_tpu_torch.geometry.curve import star
+    bdy = star(PERIODIC_S, x=np.pi, y=np.pi, r=2.0, a=0.2, f=5)
+    L = 2 * np.pi
+    ex = np.array([0.05, L - 0.06, 2.0, 4.0, 0.1, L - 0.1, 3.0, 5.5,
+                   0.04, 0.09, L - 0.05, L - 0.08, 0.06, L - 0.03, 0.11,
+                   L - 0.12])
+    ey = np.array([1.0, 2.5, 0.07, L - 0.04, 4.5, 5.0, 0.12, L - 0.1,
+                   0.05, L - 0.07, 0.03, L - 0.06, 0.1, 0.08, L - 0.11,
+                   L - 0.02])
+    w = np.r_[bdy.weights, np.full(16, bdy.weights.mean())]
+    q = np.random.default_rng(7).standard_normal(w.size) * w
+    return np.r_[bdy.x, ex], np.r_[bdy.y, ey], q
+
+
+def far_mask(sx, sy, n, h, reach=6):
+    """(n, n) bool: grid points farther than ``reach`` h from every source
+    on the torus (stamped source by source, exact)."""
+    near = np.zeros((n, n), bool)
+    loc = np.arange(-reach - 1, reach + 2)
+    for x, y in zip(sx, sy):
+        ii = int(round(x / h)) + loc
+        jj = int(round(y / h)) + loc
+        i, j = np.nonzero((ii[:, None] * h - x) ** 2
+                          + (jj[None, :] * h - y) ** 2 <= (reach * h) ** 2)
+        near[np.mod(ii[i], n), np.mod(jj[j], n)] = True
+    return ~near
+
+
+def ewald_laplace(tx, ty, sx, sy, q, L, eta=1.3, nk=18, nimg=1):
+    """Zero-mean periodic Laplace potential with the neutralizing
+    background by an Ewald sum of another splitting parameter than the
+    evaluator's (numpy and scipy on the host); sources and targets in one
+    period, so images beyond the nearest 3 x 3 add E1(eta^2 L^2) ~ 1e-31."""
+    from scipy.special import exp1
+    A = L * L
+    out = np.zeros_like(tx)
+    for mx in range(-nimg, nimg + 1):
+        for my in range(-nimg, nimg + 1):
+            dx = tx[:, None] - sx[None, :] + mx * L
+            dy = ty[:, None] - sy[None, :] + my * L
+            out += (exp1(eta**2 * (dx * dx + dy * dy)) / (4 * np.pi)) @ q
+    ks = np.arange(-nk, nk + 1) * (2 * np.pi / L)
+    ex = np.exp(-1j * np.outer(ks, sx))
+    ey = np.exp(-1j * np.outer(ks, sy))
+    rho = (ex[:, None, :] * ey[None, :, :]) @ q            # (nk, nk)
+    k2 = ks[:, None] ** 2 + ks[None, :] ** 2
+    k2[nk, nk] = np.inf
+    coef = np.exp(-k2 / (4 * eta**2)) / k2 / A * rho
+    out += np.einsum("ab,ta,tb->t", coef, np.exp(1j * np.outer(tx, ks)),
+                     np.exp(1j * np.outer(ty, ks))).real
+    return out - q.sum() / (4 * eta**2 * A)
+
+
+def periodic_phase(dev, K):
+    """The periodic evaluator on a PERIODIC_N^2 grid of [0, 2 pi]^2 (see the
+    module docstring)."""
+    from ipde_tpu_torch.geometry.grid import Grid
+    from ipde_tpu_torch.ops.grid_eval import (FreespaceGridEvaluator,
+                                              PeriodicGridEvaluator)
+    t_phase = time.perf_counter()
+    L, n = 2 * np.pi, PERIODIC_N
+    h = L / n
+    grid = Grid((0.0, L), n, (0.0, L), n)
+    sx, sy, q = periodic_sources()
+    qd = torch.as_tensor(q, device=dev)
+    far = far_mask(sx, sy, n, h)
+    r_cut = 22.0 * h
+    n_edge = int((np.minimum.reduce([sx, L - sx, sy, L - sy]) < r_cut).sum())
+    print(f"# periodic: grid {n}x{n}, {sx.size} sources ({n_edge} within "
+          f"r_cut {r_cut:.4f} of an edge), {int(far.sum())} grid points "
+          f"farther than 6 h from every source", flush=True)
+    gaps = []
+    for kernel in ("yukawa", "laplace"):
+        t0 = time.perf_counter()
+        ev = PeriodicGridEvaluator(grid, sx, sy, kernel=kernel,
+                                   kappa=PERIODIC_KAPPA, device=dev)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        charges = ([("", qd)] if kernel == "yukawa" else
+                   [("non-neutral", qd), ("neutral", qd - qd.mean())])
+        for tag, c in charges:
+            a, b = ev(c), ev(c)
+            torch.cuda.synchronize()
+            equal = torch.equal(a, b)
+            if kernel == "yukawa":
+                shifts = [(mx * L, my * L) for mx in (-1, 0, 1)
+                          for my in (-1, 0, 1)]
+                t = lambda v: torch.as_tensor(v, device=dev)  # noqa: E731
+                isx = t(np.concatenate([sx + u for u, _ in shifts]))
+                isy = t(np.concatenate([sy + v for _, v in shifts]))
+                iq = c.repeat(9)
+                txy = [t(g.reshape(-1)) for g in (grid.xg, grid.yg)]
+                want = K.mh_slp_apply(isx, isy, iq, *txy, PERIODIC_KAPPA)
+                torch.cuda.synchronize()
+                d = (a.reshape(-1) - want).abs().cpu().numpy().reshape(n, n)
+                gap, gap_all = float(d[far].max()), float(d.max())
+                what = (f"against the mh_slp sum over 3 x 3 image shifts "
+                        f"({isx.shape[0]} sources) at the {int(far.sum())} "
+                        f"far points {gap:.3e}, at all {n * n} points "
+                        f"{gap_all:.3e}")
+            else:
+                idx = np.flatnonzero(far.ravel())[::int(far.sum()) // 240]
+                ti, tj = np.unravel_index(idx, far.shape)
+                want = ewald_laplace(ti * h, tj * h, sx, sy,
+                                     c.cpu().numpy(), L)
+                gap = float(np.abs(a.cpu().numpy()[ti, tj] - want).max())
+                what = (f"against an independent Ewald sum (eta 1.3) at "
+                        f"{idx.size} far points {gap:.3e}")
+            gaps.append(gap)
+            print(f"# periodic {kernel} {tag}: setup {setup_s:.2f} s; "
+                  f"{what} (limit {TOL_PERIODIC:.0e}); two runs "
+                  f"{'bit-equal' if equal else 'NOT bit-equal'}", flush=True)
+            if not (equal and gap <= TOL_PERIODIC):
+                raise RuntimeError(f"periodic {kernel} {tag}: error "
+                                   f"{gap:.3e} or runs differ")
+        warm = []
+        for _ in range(WARM_RUNS):
+            t0 = time.perf_counter()
+            ev(qd)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        print(f"# periodic {kernel}: apply {warm_text(warm)}", flush=True)
+    t0 = time.perf_counter()
+    fev = FreespaceGridEvaluator(grid, sx, sy, kernel="laplace", device=dev)
+    torch.cuda.synchronize()
+    fs_setup = time.perf_counter() - t0
+    fev(qd)
+    warm = []
+    for _ in range(WARM_RUNS):
+        t0 = time.perf_counter()
+        fev(qd)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+    print(f"# periodic: beside it FreespaceGridEvaluator (laplace) on the "
+          f"same sources and grid: padded box {fev.Px}x{fev.Py}, setup "
+          f"{fs_setup:.2f} s, apply {warm_text(warm)}; phase "
+          f"{time.perf_counter() - t_phase:.2f} s", flush=True)
+
+
+def ledger_tpu_err(block, **key):
+    """The err of the row of LEDGER_TPU.json's ``block`` whose fields equal
+    ``key``, as text ("none" where there is no such row)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "LEDGER_TPU.json")
+    with open(path) as fh:
+        rows = json.load(fh).get(block, {}).get("rows", [])
+    row = next((r for r in rows
+                if all(r.get(k) == v for k, v in key.items())), None)
+    return "none" if row is None else f"{row['err']:.7e}"
+
+
+def load_example(name):
+    """examples/<name>.py as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "examples", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def examples_phase(K, SK, counters):
+    """The smallest default row of four example scripts through their own
+    run_case on the card, and entry(): each run with every count set to 0
+    just before and read just after, and every launch of it recorded; after
+    the run, each distinct (T, S) held to the plain version, timed beside
+    its bound, two runs bit for bit (hold_calls).  Returns (launches by
+    kernel, max abs difference from the plain version by kernel)."""
+    from ipde_tpu_torch.entry import entry, sol as entry_sol
+    holds = kernel_holds(K, SK)
+    launches = {name: 0 for name in counters}
+    errs = {name: 0.0 for name in counters}
+
+    def counted(label, fn):
+        for c in counters.values():
+            c.launches = 0
+        out, calls = record_all_launch_args(fn, holds)
+        for name, c in counters.items():
+            launches[name] += c.launches
+        for name, got in calls.items():
+            if len(got) != counters[name].launches:
+                raise RuntimeError(f"{label}: {len(got)} {name} launches "
+                                   f"recorded, {counters[name].launches} "
+                                   "counted")
+            if got:
+                module, attr, plain, err, bound_of = holds[name]
+                errs[name] = max(errs[name], hold_calls(
+                    label, got, getattr(module, attr), plain, err, bound_of,
+                    "its run"))
+        return out
+
+    def hold(label, got, ref, ledger):
+        gap = abs(got / ref - 1.0)
+        print(f"# example {label}: err {got:.10e}, ipde_tpu on the CPU "
+              f"{ref:.10e} (relative difference {gap:.3e}, limit "
+              f"{TOL_EXAMPLE_REL}); LEDGER_TPU.json {ledger}", flush=True)
+        if not (math.isfinite(got) and gap <= TOL_EXAMPLE_REL):
+            raise RuntimeError(f"example {label}: {got:.6e} is not within "
+                               f"{TOL_EXAMPLE_REL} of ipde_tpu's {ref:.6e}")
+
+    def times(row):
+        return (f"setup {row['setup_s']:.2f} s, first {row['first_s']:.3f} "
+                f"s, warm median {row['solve_ms']:.2f} ms (min "
+                f"{row['solve_ms_min']:.2f}, max {row['solve_ms_max']:.2f}), "
+                f"GMRES {row['iterations']}, residual {row['residual']:.3e} "
+                f"at tol {row['tol']:.0e}")
+
+    ex = load_example("torch_poisson_refinement")
+    label = "torch_poisson_refinement (200, 8)"
+    row = counted(label, lambda: ex.run_case(200, 8))
+    old = ledger_tpu_err("poisson_refinement@cpu", nb=200, M=8)
+    print(f"# example {label}: {times(row)}; rule err <= 3 x "
+          f"{ex.REFERENCE_ERR[200]:.4e} "
+          f"{'met' if ex.check(row) else 'NOT met'}", flush=True)
+    hold(label, row["err"], IPDE_TPU_EXAMPLES_CPU["poisson_refinement"],
+         f"poisson_refinement@cpu {old}")
+    if not row["beats_reference"] or launches["laplace_slp"] <= 0:
+        raise RuntimeError(f"{label} misses its rule or launched no "
+                           "laplace_slp")
+
+    ex = load_example("torch_mh_neumann_refinement")
+    label = "torch_mh_neumann_refinement (k = 1: 200, 10)"
+    before = launches["mh_slp"]
+    row = counted(label, lambda: ex.run_case(1.0, 200, 10))
+    old = ledger_tpu_err("mh_neumann_refinement", k2=1.0, nb=200, M=10)
+    print(f"# example {label}: {times(row)}; its rule holds the best row of "
+          f"each k of a sweep to 3 x {ex.REFERENCE_ERR[1.0]:.2e}: this "
+          f"coarse row alone "
+          f"{'meets' if row['err'] <= 3 * ex.REFERENCE_ERR[1.0] else 'does not meet'} "
+          f"it (the full sweep: PERF.md section 5)", flush=True)
+    hold(label, row["err"], IPDE_TPU_EXAMPLES_CPU["mh_neumann_refinement"],
+         f"mh_neumann_refinement (cpu block) {old}")
+    if launches["mh_slp"] <= before:
+        raise RuntimeError(f"{label} launched no mh_slp")
+
+    ex = load_example("torch_stokes_refinement")
+    label = "torch_stokes_refinement (100, 8)"
+    row = counted(label, lambda: ex.run_case(100, 8))
+    old = ledger_tpu_err("stokes_refinement@cpu", nb=100, M=8)
+    ok = ex.check(row)
+    print(f"# example {label}: {times(row)}; rule err <= 3 x "
+          f"{ex.REFERENCE_ERR[100]:.4e} {'met' if ok else 'NOT met'}",
+          flush=True)
+    hold(f"{label} (ipde_tpu with the port's BIE radial plans)", row["err"],
+         IPDE_TPU_EXAMPLES_CPU["stokes_refinement"],
+         f"stokes_refinement@cpu (ipde_tpu's own plans) {old}")
+    if not ok or launches["stokes_slp"] <= 0:
+        raise RuntimeError(f"{label} misses its rule or launched no "
+                           "stokes_slp")
+
+    ex = load_example("torch_advection_convergence")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "LEDGER_TPU.json")) as fh:
+        adv = json.load(fh)["advection_convergence"]
+    adv = next(r for r in adv["rows"] if r["dt"] == 0.1)
+    for order2, scheme in ((False, "fe"), (True, "bdf2")):
+        label = f"torch_advection_convergence {scheme}"
+        err, step_s = counted(label,
+                              lambda: ex.run_case(0.1, 2, order2, 200, 10))
+        print(f"# example {label} (dt 0.1, 2 steps, nb 200, M 10): "
+              f"{step_s:.3f} s per step", flush=True)
+        hold(label, err,
+             IPDE_TPU_EXAMPLES_CPU[f"advection_convergence_{scheme}"],
+             f"advection_convergence (cpu block, nb 200, M 10, T 0.2) "
+             f"{adv['err_' + scheme]:.4e}")
+
+    fn, args = entry()
+    t0 = time.perf_counter()
+    u = counted("entry()", lambda: fn(*args))
+    torch.cuda.synchronize()
+    ebdyc = fn.solver.ebdyc
+    g = ebdyc.grid
+    err = float(np.abs(u.cpu().numpy() - entry_sol(g.xg, g.yg))
+                [ebdyc.phys].max())
+    print(f"# entry(): one fn(*args) on the card, its kernels held after "
+          f"it, {time.perf_counter() - t0:.3f} s, grid {tuple(u.shape)}, max "
+          f"error against the analytic solution {err:.4e}", flush=True)
+    if not (math.isfinite(err) and err < 2e-6):
+        raise RuntimeError(f"entry(): error {err:.3e}")
+    return launches, errs
+
+
+def phase7(dev, K, SK, counters):
+    """Phase 7 (see the module docstring); returns (launches by kernel, max
+    abs difference from the plain version by kernel)."""
+    t_phase = time.perf_counter()
+    launches, errs = fourth_phase(K, SK, counters)
+    periodic_phase(dev, K)
+    got, held = examples_phase(K, SK, counters)
+    for name, n in got.items():
+        launches[name] += n
+        errs[name] = max(errs[name], held[name])
+    print(f"# phase 7 {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launches, errs
+
+
 def main():
     t_start = time.perf_counter()
     # ---- phase 1: device, card, build ------------------------------------
@@ -1864,11 +2371,16 @@ def main():
     errs["mh_slp"] = max(errs["mh_slp"], stepper_err)
     advector_phase(dev)
     tier2_interface_phase(dev)
+    # ---- phase 7: fourth order, the periodic evaluator, the examples ------
+    fourth_launches, fourth_errs = phase7(dev, K, SK, counters)
+    for name, n in fourth_launches.items():
+        launches[name] += n
+        errs[name] = max(errs[name], fourth_errs.get(name, 0.0))
     for entry in kernels:
         entry["launches"] += launches[entry["name"]]
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[entry["name"]])
 
-    # ---- phase 7: results --------------------------------------------------
+    # ---- phase 8: results --------------------------------------------------
     print(f"# total {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -13,14 +13,15 @@ free-space convolution for all distances < L: no periodic images), and T the
 band-limited kernel the FFT applies (a radial function, tabulated once from a
 1D Hankel quadrature).
 
-The port of ipde_tpu.ops.grid_eval (FreespaceGridEvaluator and
-StokesFreespaceGridEvaluator, with the same symbols, box, screen, tables and
-corrections) on torch.  What ipde_tpu does only because of the TPU is left
-behind: the spread is one ``torch.matmul`` (an ``index_add_`` scatter where
-the dense window factors would exceed SPREAD_MATMUL_MB; on the card its FP64
-atomics make that path's output differ in the last bits from run to run, and
-no problem of chip_smoke.py or the tests reaches it: the bench Stokes
-evaluator's factors take about 85 MB), the transforms are
+The port of ipde_tpu.ops.grid_eval (FreespaceGridEvaluator,
+PeriodicGridEvaluator, the periodic-box Ewald counterpart on the unpadded
+box, and StokesFreespaceGridEvaluator, with the same symbols, box, screen,
+tables and corrections) on torch.  What ipde_tpu does only because of the
+TPU is left behind: the spread is one ``torch.matmul`` (an ``index_add_``
+scatter where the dense window factors would exceed SPREAD_MATMUL_MB; on the
+card its FP64 atomics make that path's output differ in the last bits from
+run to run, and no problem of chip_smoke.py or the tests reaches it: the
+bench Stokes evaluator's factors take about 85 MB), the transforms are
 torch.fft, and the near corrections are one sparse CSR matrix per evaluator,
 built at setup from the masked patch values and applied as one sparse-dense
 product (ipde_tpu adds per-source patches in a serial scan because scatter
@@ -47,7 +48,7 @@ from ipde_tpu_torch.config import require_cuda
 from ipde_tpu_torch.geometry.grid import Grid
 from ipde_tpu_torch.ops.fourier import FourierPlan2D
 from ipde_tpu_torch.ops.interp import _es_kernel
-from ipde_tpu_torch.ops.kernels import k0_split
+from ipde_tpu_torch.ops.kernels import expint_e1, k0_split
 
 # the spread runs as one matmul of dense window factors, S x (nzx + nzy)
 # float64, up to this many MB; beyond it as an index_add_ scatter
@@ -399,14 +400,17 @@ class _EvaluatorBase:
         # field is folded into the local corrections
         self.eta = np.pi / (11.4 * max(hx, hy))
 
-    def _setup_spreading(self, src_x, src_y, w):
-        """The free-space spreading plan: every source's window lies in the
-        unpadded corner, so the padded box's origin is shifted instead of
-        wrapping.  The spread array then has support only in a (nzx, nzy)
-        prefix block (rounded up to multiples of 32): the forward transform
-        zero-pads it (FourierPlan2D.rfft2), and the convolution's translation
-        invariance moves the shift into the inverse transform's output window
-        (irfft2_real_corner nx0/ny0)."""
+    def _setup_spreading(self, src_x, src_y, w, wrap: bool = False):
+        """The spreading plan of the (Px, Py) box.  Free space (``wrap``
+        False): every source's window lies in the unpadded corner, so the
+        padded box's origin is shifted instead of wrapping.  The spread
+        array then has support only in a (nzx, nzy) prefix block (rounded up
+        to multiples of 32): the forward transform zero-pads it
+        (FourierPlan2D.rfft2), and the convolution's translation invariance
+        moves the shift into the inverse transform's output window
+        (irfft2_real_corner nx0/ny0).  Periodic (``wrap``): the windows wrap
+        the torus, taken mod (Px, Py), and the spread array is the whole
+        box."""
         grid, Px, Py = self.grid, self.Px, self.Py
         hx, hy = grid.xh, grid.yh
         dev = self.device
@@ -420,16 +424,21 @@ class _EvaluatorBase:
         py = jy[:, None] + np.arange(w)[None, :]
         wx = _es_kernel((gx[:, None] - px) / half_w, beta)
         wy = _es_kernel((gy[:, None] - py) / half_w, beta)
-        sx = int(max(0, -px.min()))
-        sy = int(max(0, -py.min()))
-        pxs = px + sx
-        pys = py + sy
-        nzx = int(pxs.max()) + 1
-        nzy = int(pys.max()) + 1
-        if nzx > Px or nzy > Py:
-            raise ValueError("source windows exceed the padded box")
-        nzx = min(Px, -(-nzx // 32) * 32)
-        nzy = min(Py, -(-nzy // 32) * 32)
+        if wrap:
+            sx = sy = 0
+            pxs, pys = np.mod(px, Px), np.mod(py, Py)
+            nzx, nzy = Px, Py
+        else:
+            sx = int(max(0, -px.min()))
+            sy = int(max(0, -py.min()))
+            pxs = px + sx
+            pys = py + sy
+            nzx = int(pxs.max()) + 1
+            nzy = int(pys.max()) + 1
+            if nzx > Px or nzy > Py:
+                raise ValueError("source windows exceed the padded box")
+            nzx = min(Px, -(-nzx // 32) * 32)
+            nzy = min(Py, -(-nzy // 32) * 32)
         self.sx_cells, self.sy_cells = sx, sy
         self.spread_shape = (nzx, nzy)
         # the separable window factorizes the type-1 spread as
@@ -488,12 +497,14 @@ class _EvaluatorBase:
         out = torch.zeros(B, nzx * nzy, dtype=qs.dtype, device=qs.device)
         return out.index_add_(1, self._spread_idx, vals).reshape(B, nzx, nzy)
 
-    def _patch_geometry(self, src_x, src_y, r_cut):
+    def _patch_geometry(self, src_x, src_y, r_cut, wrap: bool = False):
         """Near-pair geometry on the device: every source gets one P x P
         patch of grid offsets around its nearest node; cells outside r_cut
         are masked.  Returns (S, P*P) offsets dx, dy (x varies slow, y
-        fast), distances, mask, and the flat grid cell of each patch cell
-        (-1 outside the grid)."""
+        fast), distances, mask, and the flat grid cell of each patch cell:
+        -1 outside the grid, or with ``wrap`` (a periodic box) the cell
+        taken mod (Nx, Ny), so that a source near an edge corrects the
+        targets its patch reaches across it."""
         grid = self.grid
         hx, hy = grid.xh, grid.yh
         dev = self.device
@@ -504,10 +515,11 @@ class _EvaluatorBase:
         # analytic table bound: source-to-patch-cell distance is at most
         # (wc + 1/2) h per axis (sources live inside the grid)
         self.r_tab_max = float(np.hypot((wc + 1.0) * hx, (wc + 1.0) * hy))
-        six = np.clip(np.round((src_x - grid.x_bounds[0]) / hx).astype(int),
-                      0, grid.Nx - 1)
-        siy = np.clip(np.round((src_y - grid.y_bounds[0]) / hy).astype(int),
-                      0, grid.Ny - 1)
+        six = np.round((src_x - grid.x_bounds[0]) / hx).astype(int)
+        siy = np.round((src_y - grid.y_bounds[0]) / hy).astype(int)
+        if not wrap:
+            six = np.clip(six, 0, grid.Nx - 1)
+            siy = np.clip(siy, 0, grid.Ny - 1)
         loc = np.arange(P) - wc
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
         dx = t(six * hx + grid.x_bounds[0] - src_x)[:, None] \
@@ -520,6 +532,8 @@ class _EvaluatorBase:
         mask = (rr <= r_cut) & (rr > 1e-13)
         cx = t(six[:, None] + loc[None, :]).repeat_interleave(P, dim=1)
         cy = t(siy[:, None] + loc[None, :]).repeat(1, P)
+        if wrap:
+            return dxf, dyf, rr, mask, (cx % grid.Nx) * grid.Ny + cy % grid.Ny
         inside = (cx >= 0) & (cx < grid.Nx) & (cy >= 0) & (cy < grid.Ny)
         return dxf, dyf, rr, mask, torch.where(inside, cx * grid.Ny + cy, -1)
 
@@ -641,6 +655,90 @@ class FreespaceGridEvaluator(_EvaluatorBase):
         """q: (S,) weighted charges -> (Nx, Ny) potential grid."""
         phi = self._inverse(self._multiply(self._forward(q[None])))
         return self._apply_patches(phi, q)[0]
+
+
+class PeriodicGridEvaluator(_EvaluatorBase):
+    """phi(grid) = sum over periodic images of G(x - s_j) q_j, the
+    box-periodic counterpart of FreespaceGridEvaluator (ipde_tpu.ops.
+    grid_eval.PeriodicGridEvaluator; reference:
+    ipde/grid_evaluators/scalar_grid_evaluator.py:246-264).
+
+    Ewald structure on the unpadded box (Px, Py = Nx, Ny; no _setup_box):
+    the far field applies the continuous screened symbol on the periodic
+    k-lattice (the periodic sum of the band-limited kernel T), the near
+    correction adds (G - T)(r) at the near offsets.  G - T is
+    Gaussian-localized (its reach, r_cut = r_cut_h h, is below half the
+    box), so only the nearest image needs correcting: the windows and the
+    patches wrap the torus, so a source within r_cut of an edge corrects
+    the targets across it.
+
+    Laplace: the k = 0 mode is pinned to zero; the result is the zero-mean
+    periodic potential when sum(q) = 0, the neutralizing-background
+    convention otherwise (``mean_shift``).  Yukawa: the untruncated screened
+    symbol, k = 0 included.  Tensors on ``device`` (None: the first CUDA
+    card; raises without one).
+    """
+
+    def __init__(self, grid: Grid, src_x, src_y, kernel: str = "laplace",
+                 kappa: float = 1.0, w: int = 16, r_cut_h: float = 22.0,
+                 *, device=None):
+        self.device = require_cuda() if device is None \
+            else torch.device(device)
+        src_x = np.asarray(src_x, np.float64).ravel()
+        src_y = np.asarray(src_y, np.float64).ravel()
+        self.S = src_x.size
+        self.kernel = kernel
+        self.grid = grid
+        hx, hy = grid.xh, grid.yh
+        self.Px, self.Py = grid.Nx, grid.Ny
+        self.A = (grid.Nx * hx) * (grid.Ny * hy)
+        self.eta = eta = np.pi / (11.4 * max(hx, hy))
+        r_cut = r_cut_h * max(hx, hy)
+        if 2 * r_cut > min(grid.Nx * hx, grid.Ny * hy):
+            raise ValueError("near-correction radius exceeds half the box")
+        if kernel not in ("laplace", "yukawa"):
+            raise ValueError(kernel)
+        self._setup_spreading(src_x, src_y, w, wrap=True)
+        _, _, rr, mask, cell = self._patch_geometry(src_x, src_y, r_cut,
+                                                    wrap=True)
+        rs = torch.where(mask, rr, 1.0)
+        if kernel == "laplace":
+            # applied: e^{-k^2/4eta^2}/k^2 over k != 0.  Its complement
+            # (1 - screen)/k^2 on the k != 0 lattice is, by Poisson
+            # summation, sum_images Dc(|x + mL|) - Dc_hat(0)/A with
+            # Dc(r) = E1(eta^2 r^2)/(4 pi) and Dc_hat(0) = 1/(4 eta^2);
+            # images beyond the nearest are e^{-(eta L/2)^2} ~ 0
+            def symf(k):
+                nzk = torch.where(k > 0, k, 1.0)
+                return torch.where(k > 0, torch.exp(-(k**2) / (4 * eta**2))
+                                   / nzk**2, 0.0)
+            corr = expint_e1(eta**2 * rs**2) / (4 * np.pi)
+            self.mean_shift = 1.0 / (4 * eta**2 * self.A)
+        else:
+            # k = 0 is finite: the applied operator is the periodic sum of
+            # the band-limited kernel T; correction (K0/2pi - T)(r) from the
+            # 1D Hankel table of the untruncated symbol (L_eff = 0)
+            kap2 = kappa**2
+
+            def symf(k):
+                return torch.exp(-(k**2 + kap2) / (4 * eta**2)) / (k**2 + kap2)
+            (T,) = _radial_hankel_tables_dev(
+                symf, 12.0 * eta, 0.0, self.r_tab_max, [_m_j0_dev],
+                cache_key=("per-yukawa", float(kappa), float(eta)),
+                device=self.device)
+            corr = k0_split(kappa * rs, rs * rs * (kap2 / 4.0)) \
+                / (2 * np.pi) - T(rs)
+            self.mean_shift = 0.0
+        self.mult = symf(self.kk_half) * self.deconv_half
+        self._patches = self._patch_matrix(
+            cell, mask, [(0, 0, torch.where(mask, corr, 0.0))], 1, 1)
+
+    def __call__(self, q: torch.Tensor) -> torch.Tensor:
+        """q: (S,) weighted charges -> (Nx, Ny) zero-mean periodic potential
+        (laplace; exact when sum(q) = 0, neutralizing background otherwise)
+        or periodic Yukawa potential."""
+        phi = self._inverse(self._forward(q[None]) * self.mult)
+        return self._apply_patches(phi, q)[0] - self.mean_shift * q.sum()
 
 
 class StokesFreespaceGridEvaluator(_EvaluatorBase):

@@ -627,3 +627,45 @@ def mh_slp_apply(sx, sy, weighted_charge, tx, ty, k: float):
 
 
 mh_slp_apply.launches = 0
+
+
+# -- the exponential integral E1 (the periodic Laplace evaluator's near
+# correction; plain torch FP64, no kernel of its own) -------------------------
+
+@functools.lru_cache(maxsize=1)
+def _cheb_e1_coeffs(lo: float = 1.0, hi: float = 44.0, deg: int = 48):
+    """Chebyshev fit of x e^x E1(x) on [lo, hi] (host scipy values), as
+    ipde_tpu.ops.kernels._cheb_e1_coeffs."""
+    from scipy.special import exp1
+    xc = np.cos(np.pi * (np.arange(deg) + 0.5) / deg)
+    zc = 0.5 * (hi + lo) + 0.5 * (hi - lo) * xc
+    c = np.polynomial.chebyshev.chebfit(xc, exp1(zc) * zc * np.exp(zc),
+                                        deg - 1)
+    return tuple(float(v) for v in c), lo, hi
+
+
+def _cheb_e1(z: torch.Tensor) -> torch.Tensor:
+    """E1(z) on [1, 44] by the fit (Clenshaw)."""
+    c, lo, hi = _cheb_e1_coeffs()
+    x = (2.0 * z - (hi + lo)) / (hi - lo)
+    b1 = torch.zeros_like(z)
+    b2 = torch.zeros_like(z)
+    for ck in c[:0:-1]:
+        b1, b2 = 2.0 * x * b1 - b2 + ck, b1
+    return (x * b1 - b2 + c[0]) * torch.exp(-z) / z
+
+
+def expint_e1(x: torch.Tensor) -> torch.Tensor:
+    """E1(x) for float64 x > 0 (~1e-14 relative; ipde_tpu.ops.kernels.
+    expint_e1): the power series below 1, the Chebyshev fit of x e^x E1(x)
+    on [1, 44] above, clamped at 44 (E1(44) ~ 2e-21: callers' arguments are
+    eta^2 r^2 <= ~40)."""
+    small = x < 1.0
+    xs = torch.where(small, x.clamp_min(1e-300), 1.0)
+    term = torch.ones_like(x)
+    acc = torch.zeros_like(x)
+    for m in range(1, 18):
+        term = term * (-xs) / m
+        acc = acc - term / m
+    e1_small = -_EULER_GAMMA - torch.log(xs) + acc
+    return torch.where(small, e1_small, _cheb_e1(x.clamp(1.0, 44.0)))

@@ -6,8 +6,10 @@ internals/scalar.py:68-116, multi_boundary/poisson.py,
 modified_helmholtz.py):
 
   1. periodic box solve of the rolled-off forcing (torch.fft + symbol),
-  2. spectral interpolation of (u, ux, uy) to all interfaces (exact
-     trigonometric evaluation of the mode array),
+  2. (u, ux, uy) at all interfaces: exact trigonometric evaluation of the
+     mode array (``solver_type="spectral"``), or 4th-order finite
+     differences on the grid and 3rd-order polynomial interpolation
+     (``solver_type="fourth"``),
   3. per boundary: annular strip solve with zero BCs (GMRES; one
      lockstep GMRES over all boundaries when they share one (M, n)),
      interface mismatch -> SLP/DLP densities -> QFS effective densities
@@ -44,7 +46,9 @@ from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
                                                 add_flat)
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import kernels, singular as sq
+from ipde_tpu_torch.ops.fd import fd_x_4, fd_y_4
 from ipde_tpu_torch.ops.grid_eval import FreespaceGridEvaluator
+from ipde_tpu_torch.ops.interp import PolyInterpolator2D
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 from ipde_tpu_torch.qfs.qfs import QFSEvaluator, laplace_qfs, mh_qfs
 from ipde_tpu_torch.solvers.annular_scalar import (
@@ -160,9 +164,16 @@ class ScalarSolver:
     per-step setup cost of moving-boundary runs.  grid_backend: 'fft' (the
     default) evaluates the sigma_g layer potential on the grid with the
     free-space FFT evaluator; 'dense' uses the direct kernel sum onto every
-    physical-not-in-annulus grid point.  solver_type: only 'spectral' is
-    ported.  Reference analogue: grid_backend selection in
-    ipde/solvers/multi_boundary/poisson.py:39-64.
+    physical-not-in-annulus grid point.  solver_type: 'spectral' (the
+    interface values and gradients from the mode array) or 'fourth'
+    (4th-order FD grid derivatives and 3rd-order polynomial interface
+    interpolation: cheaper, about 1e-6 accurate; reference:
+    ipde/solvers/multi_boundary/scalar.py:25,47,80-95).  Reference analogue
+    of grid_backend: ipde/solvers/multi_boundary/poisson.py:39-64.
+
+    GMRES tol: the annular solves check the TRUE residual and raise above
+    tol; its float64 floor is about 3e-14 (Poisson), so the default is
+    1e-12, not ipde_tpu's 1e-14.
     """
 
     def __init__(self, ebdyc: EmbeddedBoundaryCollection,
@@ -173,15 +184,17 @@ class ScalarSolver:
             raise ValueError("collection has no registered grid")
         if grid_backend not in ("fft", "dense"):
             raise ValueError(grid_backend)
-        if solver_type == "fourth":
-            raise NotImplementedError(
-                "solver_type='fourth' is not ported to ipde_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 5)")
-        if solver_type != "spectral":
+        if solver_type not in ("spectral", "fourth"):
             raise ValueError(solver_type)
         self.device = ebdyc.device
         self.grid_backend = grid_backend
         self.solver_type = solver_type
+        if solver_type == "fourth":
+            g = ebdyc.grid
+            self.ifc_poly_interp = PolyInterpolator2D(
+                g.x_bounds[0], g.y_bounds[0], g.xh, g.yh, g.Nx, g.Ny,
+                ebdyc.all_interface_x, ebdyc.all_interface_y, order=3,
+                device=self.device)
         donors = list(helpers or [])
         donors += [None] * (len(ebdyc.ebdys) - len(donors))
         self.helpers = [
@@ -290,11 +303,19 @@ class ScalarSolver:
         fc = self._prepare_grid_rhs(f.grid * ebdyc.grid_step_dev)
         uch = fft_plan.fft2(fc) * self._symbol
         uc = fft_plan.ifft2_real(uch)
-        # interface values + gradients from the mode array
-        vals, gxs, gys = ebdyc.interface_values_and_grads(uch[None])
-        bvl = ebdyc.v2l(vals[0])
-        bxl = ebdyc.v2l(gxs[0])
-        byl = ebdyc.v2l(gys[0])
+        if self.solver_type == "fourth":
+            # 4th-order FD derivatives + 3rd-order polynomial interface
+            # interpolation (reference: multi_boundary/scalar.py:89-95)
+            g, pi = ebdyc.grid, self.ifc_poly_interp
+            bvs, bxs, bys = (pi(uc), pi(fd_x_4(uc, g.xh)),
+                             pi(fd_y_4(uc, g.yh)))
+        else:
+            # interface values + gradients from the mode array
+            vals, gxs, gys = ebdyc.interface_values_and_grads(uch[None])
+            bvs, bxs, bys = vals[0], gxs[0], gys[0]
+        bvl = ebdyc.v2l(bvs)
+        bxl = ebdyc.v2l(bxs)
+        byl = ebdyc.v2l(bys)
         # per-boundary annular solves + densities: one lockstep GMRES when
         # every boundary has the same (M, n), else one after another
         dims = {(h.annular_solver.M, h.annular_solver.n)

@@ -7,7 +7,10 @@ ipde_tpu.solvers.vector:
   1. box solve by spectral pressure projection of the rolled-off forcing
      (one batched torch.fft of the two forcing fields, one of (u, v, p)),
   2. values and gradients of (u, v, p) at the interface from one 3-field
-     exact evaluation of the mode stack; the grid solution's traction there,
+     exact evaluation of the mode stack (``solver_type="spectral"``) or by
+     4th-order finite differences on the grid and 3rd-order polynomial
+     interpolation (``solver_type="fourth"``); the grid solution's traction
+     there,
   3. per boundary: annular Stokes solve (zero velocity BCs; one lockstep
      GMRES over all boundaries when they share one (M, n)), interface
      traction of the radial solution; SLP density = traction jump, DLP
@@ -25,9 +28,8 @@ ipde_tpu.solvers.vector:
      per strip and the radial->grid merge.
 
 Ported: one interior boundary plus any number of inclusions
-(``interior=False``), both grid backends, ``helpers=`` reuse and
-``solver_type="spectral"``.  ``solver_type="fourth"`` raises
-NotImplementedError naming its ROADMAP.md item.
+(``interior=False``), both grid backends, ``helpers=`` reuse and both
+solver types.
 """
 
 from __future__ import annotations
@@ -43,8 +45,10 @@ from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
                                                 add_flat)
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import stokes_kernels as sk
+from ipde_tpu_torch.ops.fd import fd_x_4, fd_y_4
 from ipde_tpu_torch.ops.fourier import FourierPlan1D
 from ipde_tpu_torch.ops.grid_eval import StokesFreespaceGridEvaluator
+from ipde_tpu_torch.ops.interp import PolyInterpolator2D
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 from ipde_tpu_torch.qfs.qfs import QFSEvaluator
 from ipde_tpu_torch.solvers.annular_stokes import (AnnularStokesSolver,
@@ -228,7 +232,12 @@ class StokesSolver:
     grid point.  helpers: the helpers of a previous StokesSolver on
     compatible geometry (same n, M, radial bounds, about the same radius):
     their annular Stokes solvers and preconditioners are reused.
-    solver_type: only 'spectral' is ported; 'fourth' raises.
+    solver_type: 'spectral' (interface data from the mode stack) or
+    'fourth' (4th-order FD grid derivatives and 3rd-order polynomial
+    interface interpolation; reference:
+    ipde/solvers/multi_boundary/vector.py:7-47).  GMRES tol: the annular
+    solve checks the TRUE residual and raises above tol; its float64 floor
+    is about 6.5e-14 here, so the default is 1e-12.
     """
 
     def __init__(self, ebdyc: EmbeddedBoundaryCollection,
@@ -239,17 +248,19 @@ class StokesSolver:
             raise ValueError("collection has no registered grid")
         if grid_backend not in ("fft", "dense"):
             raise ValueError(grid_backend)
-        if solver_type == "fourth":
-            raise NotImplementedError(
-                "solver_type='fourth' is not ported to ipde_tpu_torch yet "
-                "(ROADMAP.md Queue 1 item 5)")
-        if solver_type != "spectral":
+        if solver_type not in ("spectral", "fourth"):
             raise ValueError(solver_type)
         if ebdyc.bumpy is None:
             ebdyc.ready_bump()
         self.device = ebdyc.device
         self.grid_backend = grid_backend
         self.solver_type = solver_type
+        if solver_type == "fourth":
+            g = ebdyc.grid
+            self.ifc_poly_interp = PolyInterpolator2D(
+                g.x_bounds[0], g.y_bounds[0], g.xh, g.yh, g.Nx, g.Ny,
+                ebdyc.all_interface_x, ebdyc.all_interface_y, order=3,
+                device=self.device)
         multi = len(ebdyc.ebdys) > 1
         donors = list(helpers or [])
         donors += [None] * (len(ebdyc.ebdys) - len(donors))
@@ -314,8 +325,16 @@ class StokesSolver:
         vh = (self.iky * ph - fvh) * self.ilap
         stack3 = torch.stack([uh, vh, ph])
         uc, vc, pc = plan.ifft2_real_stack(stack3)
-        # values + gradients of (u, v, p) at the interface in one pass
-        vals, gxs, gys = ebdyc.interface_values_and_grads(stack3)
+        if self.solver_type == "fourth":
+            # 4th-order FD derivatives + 3rd-order polynomial interface
+            # interpolation (reference: multi_boundary/vector.py:7-47)
+            g, pi = ebdyc.grid, self.ifc_poly_interp
+            vals = [pi(uc), pi(vc), pi(pc)]
+            gxs = [pi(fd_x_4(uc, g.xh)), pi(fd_x_4(vc, g.xh))]
+            gys = [pi(fd_y_4(uc, g.yh)), pi(fd_y_4(vc, g.yh))]
+        else:
+            # values + gradients of (u, v, p) at the interface in one pass
+            vals, gxs, gys = ebdyc.interface_values_and_grads(stack3)
         bps = vals[2]
         btxxs = 2 * gxs[0] - bps
         btxys = gys[0] + gxs[1]

@@ -37,6 +37,20 @@ from ipde_tpu_torch.ops import grid_eval as tge
 GRIDS = [(96, 96), (96, 128)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module.  The tier-1 command runs six
+    workers on eight cores, where torch's OpenMP threads oversubscribe the
+    CPU: the port's CPU paths here then run several times slower than on
+    one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _np(a):
     return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 

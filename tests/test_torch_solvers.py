@@ -46,6 +46,20 @@ NB, M = 128, 8
 SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module.  The tier-1 command runs six
+    workers on eight cores, where torch's OpenMP threads oversubscribe the
+    CPU: the port's CPU paths here then run several times slower than on
+    one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def sol(x, y):
     return -np.cos(x) * np.exp(np.sin(x)) * np.sin(y)
 

@@ -45,10 +45,25 @@ from ipde_tpu_torch.ops import fourier, interp
 from ipde_tpu_torch.ops import stokes_kernels as sk
 from ipde_tpu_torch.solvers import annular_stokes as ann
 from ipde_tpu_torch.solvers.bie import StokesDirichletBIE
+from ipde_tpu_torch.solvers.scalar import PoissonSolver
 from ipde_tpu_torch.solvers.vector import StokesSolver
 
 NB, M = 128, 8
 SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module.  The tier-1 command runs six
+    workers on eight cores, where torch's OpenMP threads oversubscribe the
+    CPU: the port's CPU paths here then run several times slower than on
+    one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
 
 
 # the manufactured solution of bench.py (BENCH_PDE=stokes)
@@ -458,18 +473,24 @@ def test_unported_options_raise(problem):
         == "fft"
     with pytest.raises(ValueError, match="spectral"):
         StokesSolver(tc, grid_backend="spectral")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 5"):
-        StokesSolver(tc, solver_type="fourth")
+    # an unknown solver type raises ValueError, in both solvers
+    for make in (StokesSolver, PoissonSolver):
+        with pytest.raises(ValueError, match="sixth"):
+            make(tc, grid_backend="dense", solver_type="sixth")
     # several boundaries and an inclusion are ported: such collections now
-    # build a solver (tests/test_torch_multi_stokes.py solves them)
+    # build a solver (tests/test_torch_multi_stokes.py solves them), and so
+    # does solver_type "fourth" (tests/test_torch_fourth.py solves it)
     e = tc.ebdys[0]
     inner = star(64, x=0.05, y=0.0, r=0.3, a=0.05, f=3)
     other = EmbeddedBoundaryCollection(
         [e, EmbeddedBoundary(inner, False, 4, e.h)], device="cpu")
     other.generate_grid(e.h)
-    solver = StokesSolver(other, grid_backend="dense")
+    solver = StokesSolver(other, grid_backend="dense", solver_type="fourth")
+    assert solver.solver_type == "fourth"
     assert [h.interior for h in solver.helpers] == [True, False]
     assert all(h.qfs_r.u2s_mat is not None for h in solver.helpers)
+    assert PoissonSolver(other, grid_backend="dense",
+                         solver_type="fourth").solver_type == "fourth"
 
 
 # the MMS of tests/test_interior_stokes.py

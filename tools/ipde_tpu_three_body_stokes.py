@@ -6,6 +6,7 @@ M_i = max(M // 2 + 2, 6), the example's manufactured solution, solve tol
 
     JAX_PLATFORMS=cpu python tools/ipde_tpu_three_body_stokes.py \\
         [--nb 700] [--M 16] [--backend fft|dense] [--plans ipde_tpu port]
+        [--solver-type spectral|fourth]
 
 ``--plans ipde_tpu`` runs the BIE as ipde_tpu builds it; ``port`` first
 gives the BIE the radial plans of ipde_tpu_torch (every source, except on
@@ -50,7 +51,7 @@ def fvf(x, y):
             + np.cos(x) * np.cos(y))
 
 
-def run(nb, M, backend, plans):
+def run(nb, M, backend, plans, solver_type="spectral"):
     from ipde_tpu.functions import BoundaryFunction, EmbeddedFunction
     from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection
     from ipde_tpu.geometry.curve import star
@@ -72,7 +73,8 @@ def run(nb, M, backend, plans):
         EmbeddedBoundary(star(nbi, x=-0.28, y=-0.22, r=0.15, a=0.05, f=3),
                          False, Mi, bh)])
     grid = ebdyc.generate_grid(bh)
-    solver = StokesSolver(ebdyc, grid_backend=backend)
+    solver = StokesSolver(ebdyc, grid_backend=backend,
+                          solver_type=solver_type)
     bie = StokesDirichletBIE(solver)
     if plans == "port":
         for i, e in enumerate(ebdyc):
@@ -107,6 +109,7 @@ def run(nb, M, backend, plans):
                       for f, F in ((u, usol), (v, vsol)))
                   for i, e in enumerate(ebdyc)]
     return {"nb": nb, "M": M, "Mi": Mi, "backend": backend, "plans": plans,
+            "solver_type": solver_type,
             "err": float(max(grid_err, *radial_err)),
             "grid_err": float(grid_err),
             "radial_err": [float(r) for r in radial_err],
@@ -123,12 +126,14 @@ def main():
     ap.add_argument("--backend", default="fft", choices=("fft", "dense"))
     ap.add_argument("--plans", nargs="+", default=["ipde_tpu", "port"],
                     choices=("ipde_tpu", "port"))
+    ap.add_argument("--solver-type", default="spectral",
+                    choices=("spectral", "fourth"))
     args = ap.parse_args()
     import jax
     jax.config.update("jax_enable_x64", True)
     for plans in args.plans:
-        print(json.dumps(run(args.nb, args.M, args.backend, plans)),
-              flush=True)
+        print(json.dumps(run(args.nb, args.M, args.backend, plans,
+                             args.solver_type)), flush=True)
 
 
 if __name__ == "__main__":

@@ -133,7 +133,40 @@ phase prints its seconds):
        relative), timed beside its bound, two runs bit for bit.
      Each solve of the phase runs with every count set to 0 just before it
      and read just after; its launches join the kernels' JSON line.
-  8. print the kernels' JSON line, the card's name and power limit, then
+  8. the mesh (ipde_tpu_torch/parallel/sharded.py): a mesh of MESH_SHARDS
+     shards round-robin over the cards torch sees (on one card all four
+     share it; its number of distinct devices is printed):
+       - the four sharded applies at the main-path merged shapes (Laplace
+         158,570x3,600 target- and source-sharded, Stokes 568,461x3,600,
+         Yukawa k = 2 121,913x2,400, on the solvers of phases 2-4 with
+         N(0, 1) / S charges), each within 1e-12 (relative, as the plain
+         comparisons) of the unsharded kernel, two runs bit for bit, every
+         shard launch's distinct (T, S) held to the plain version
+         (hold_calls), the sharded and the unsharded apply timed;
+       - bench tier-1 Stokes and Poisson nb1200 on both backends and
+         stokes_3body on the fft backend, on the solvers and BIEs of phases
+         2, 3 and 5, under use_mesh, against the unsharded solve on the
+         same collection: GMRES iterations equal, each field within
+         TOL_MESH (1e-12) or, where that is larger, MESH_ULPS (16) times
+         how far the field moves when the outputs of the applies a mesh
+         shards move up by one ulp in the unsharded solve (measured in the
+         same run: sharding changes those outputs by a few ulps),
+         the launches of the mesh run counted (every count set to 0 just
+         before it) and held with hold_calls, WARM_RUNS warm solves with and
+         without the mesh in alternating turns, device ms and idle share of
+         each; the lockstep GMRES over stokes_3body's two inclusions with
+         its boundary axis split over the mesh against the unsharded one
+         (iterations equal, within 1e-12 of max |x|);
+       - dryrun_multichip(MESH_SHARDS): finite, its launches counted;
+       - a mesh of the card and the CPU in turns (a CPU shard takes the
+         plain version), so that one card shows every copy to a shard's
+         device and every gather: the four sharded applies at the
+         interface shapes of phases 2-4 within 1e-12 (relative) of the
+         unsharded kernel, one launch per card shard, and the lockstep
+         GMRES over stokes_3body's inclusions split over (card, cpu)
+         against the unsharded one (iterations equal, within 1e-12 of
+         max |x|).
+  9. print the kernels' JSON line, the card's name and power limit, then
      the device JSON line last.
 The four solves above run with grid_backend="dense": the merged sigma_g and
 the BIE field go onto the physical grid points through the CUDA kernels.
@@ -280,6 +313,16 @@ TOL_EXAMPLE_REL = 0.01
 # independent Ewald sum; absolute limit of tests/test_periodic_grid_eval.py
 PERIODIC_N, PERIODIC_S, PERIODIC_KAPPA = 1024, 3600, 20.0
 TOL_PERIODIC = 1e-9
+# phase 8: shards of the mesh (round-robin over the cards torch sees) and the
+# limit on |mesh solve - unsharded solve| of each field: TOL_MESH
+# (tests/test_sharded.py:136), or MESH_ULPS times how far that field moves
+# when the values the mesh shards move up one ulp, where that is larger (a
+# shard sums its sources in another order than the whole launch, which
+# changes those values by a few ulps; on stokes_3body one ulp moves the
+# inclusions' pressure by 7.9e-13 through their u2s re-match)
+MESH_SHARDS = 4
+TOL_MESH = 1e-12
+MESH_ULPS = 16
 # what earlier phases leave for phase 7 to reuse (collections, errors)
 SHARED = {}
 
@@ -596,6 +639,24 @@ def timed_runs(run, counters):
     return out, launches, first, warm
 
 
+def solve_run(solver, bie, f, bcs):
+    """run() -> (corrected fields, stats): one solve (GMRES tol GMRES_TOL,
+    maxiter 100, restart 30) + apply_bc of the forcing ``f`` (an
+    EmbeddedFunction, or (fu, fv) for Stokes) and the boundary data ``bcs``
+    (a BoundaryFunction, or (bcu, bcv)), synchronised."""
+    def run():
+        kw = dict(tol=GMRES_TOL, maxiter=100, restart=30)
+        if isinstance(f, tuple):
+            out, stats = solver.solve_with_stats(*f, **kw)
+            out = bie.apply_bc(*out, *bcs)
+        else:
+            out, stats = solver.solve_with_stats(f, **kw)
+            out = bie.apply_bc(out, bcs)
+        torch.cuda.synchronize()
+        return out, stats
+    return run
+
+
 def warm_text(warm):
     """'median ms (min, max, n runs)' of warm run seconds."""
     ms = [w * 1e3 for w in warm]
@@ -711,6 +772,9 @@ def scalar_fft_run(label, make_solver, bie_cls, f, bc, exact, limit,
     grid_err, rad_err = max_err(ebdyc, ue, exact)
     err = max(grid_err, rad_err)
     SHARED[f"{label}_fft_err"] = err
+    if label == "poisson":
+        SHARED["mesh poisson_nb1200 [fft]"] = (solver, solve_run(
+            solver, bie, f, bc))
     resid = stats["annular_residuals"][0]
     print(f"# {label} [fft] solve: {stats['annular_iterations'][0]} GMRES "
           f"iterations, residual {resid:.3e}, max error {err:.3e} (grid "
@@ -918,6 +982,8 @@ def poisson_phase(dev, K, counters):
         return ue, stats
 
     (ue, stats), launches, first_s, warm = timed_runs(run, counters)
+    SHARED["mesh poisson_nb1200 [dense]"] = (solver, solve_run(solver, bie,
+                                                                f, bc))
     grid_err, rad_err = max_err(ebdyc, ue, sol)
     err = max(grid_err, rad_err)
     iters = stats["annular_iterations"][0]
@@ -1021,6 +1087,8 @@ def stokes_fft_run(SK, counters, dense_solver, dense_bie, fs, bcs):
         return (u, v, p), stats
 
     ((u, v, p), stats), launches, first_s, warm = timed_runs(run, counters)
+    SHARED["mesh stokes_tier1 [fft]"] = (solver, solve_run(solver, bie, fs,
+                                                           bcs))
     g = ebdyc.grid
     vel_err = max(max(max_err(ebdyc, u, usol)), max(max_err(ebdyc, v, vsol)))
     shift = float((p.grid.cpu().numpy() - psol(g.xg, g.yg))[ebdyc.phys]
@@ -1129,6 +1197,8 @@ def stokes_phase(dev, SK, counters):
         return (u, v, p), stats
 
     ((u, v, p), stats), launches, first_s, warm = timed_runs(run, counters)
+    SHARED["mesh stokes_tier1 [dense]"] = (solver, solve_run(
+        solver, bie, (fu, fv), (bcu, bcv)))
     vel = [max_err(ebdyc, u, usol), max_err(ebdyc, v, vsol)]
     vel_err = max(max(a) for a in vel)
     shift = float((p.grid.cpu().numpy() - psol(grid.xg, grid.yg))
@@ -1256,6 +1326,7 @@ def mh_phase(dev, K, counters):
             return ue, stats
 
         (ue, stats), launches, first_s, warm = timed_runs(run, counters)
+        SHARED[f"{name} [dense] solver"] = solver
         grid_err, rad_err = max_err(ebdyc, ue, mh_sol)
         err = max(grid_err, rad_err)
         iters = stats["annular_iterations"][0]
@@ -1604,6 +1675,9 @@ def multi_body_phase(dev, K, SK, counters):
                 return out
 
             (out, stats), got, first_s, warm = timed_runs(run, counters)
+            if label == "stokes_3body" and backend == "fft":
+                SHARED["mesh stokes_3body [fft]"] = (solver, solve_run(
+                    solver, bie, *data))
             err, limit, text = check(ebdyc, out)
             resid = max(stats["annular_residuals"])
             print(f"# {label} [{backend}] solve: GMRES iterations "
@@ -2329,6 +2403,327 @@ def phase7(dev, K, SK, counters):
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the mesh
+# ---------------------------------------------------------------------------
+
+def mesh_applies(mesh, K, SK, counters, holds):
+    """The four sharded applies at the main-path merged shapes, each against
+    the unsharded kernel (TOL_KERNEL_REL), two runs bit for bit, its shard
+    launches held with hold_calls (``holds``: kernel_holds), both timed.
+    Returns the largest max abs difference from the plain version by
+    kernel."""
+    from ipde_tpu_torch.parallel import sharded as P
+    errs = {name: 0.0 for name in counters}
+    rng = np.random.default_rng(8)
+
+    def charges(s):
+        S = s.grid_src_x.shape[0]
+        return torch.as_tensor(rng.standard_normal(S) / S, device=mesh.lead)
+
+    pois, _ = SHARED["mesh poisson_nb1200 [dense]"]
+    sto, _ = SHARED["mesh stokes_tier1 [dense]"]
+    mh = SHARED["mh_dirichlet_k2 [dense] solver"]
+    lap = (pois.grid_src_x, pois.grid_src_y, charges(pois), pois._dense_tx,
+           pois._dense_ty)
+    stk = (sto.grid_src_x, sto.grid_src_y, charges(sto), charges(sto),
+           sto._dense_tx, sto._dense_ty)
+    yuk = (mh.grid_src_x, mh.grid_src_y, charges(mh), mh._dense_tx,
+           mh._dense_ty)
+    cases = (
+        ("laplace_slp", "sharded_laplace_slp_apply", lap,
+         lambda: P.sharded_laplace_slp_apply(mesh, *lap),
+         lambda: K.laplace_slp_apply(*lap)),
+        ("laplace_slp", "source_sharded_laplace_slp_apply", lap,
+         lambda: P.source_sharded_laplace_slp_apply(mesh, *lap),
+         lambda: K.laplace_slp_apply(*lap)),
+        ("stokes_slp", "sharded_stokes_slp_apply", stk,
+         lambda: P.sharded_stokes_slp_apply(mesh, *stk),
+         lambda: SK.stokes_slp_apply(*stk)),
+        ("mh_slp", "sharded_mh_slp_apply (k = 2)", yuk,
+         lambda: P.sharded_mh_slp_apply(mesh, *yuk, mh.k),
+         lambda: K.mh_slp_apply(*yuk, mh.k)))
+    for kname, label, args, sharded, one in cases:
+        module, attr, plain, err, bound_of = holds[kname]
+        got = []
+        calls = record_launch_args(lambda: got.append(sharded()), module,
+                                   attr)
+        again = sharded()
+        want = one()
+        torch.cuda.synchronize()
+        outs = [o if isinstance(o, tuple) else (o,) for o in
+                (got[0], again)]
+        if not all(torch.equal(a, b) for a, b in zip(*outs)):
+            raise RuntimeError(f"{label}: two runs differ")
+        abs_err, rel_err = err(got[0], want)
+        ms, one_ms = cuda_ms(sharded), cuda_ms(one)
+        print(f"# mesh {label}: T={args[-1].shape[0]} S={args[0].shape[0]}, "
+              f"{len(calls)} launches, against the unsharded kernel max_abs="
+              f"{abs_err:.3e} max_rel={rel_err:.3e} (tol {TOL_KERNEL_REL:.0e})"
+              f", two runs bit-equal; sharded {ms:.4f} ms, unsharded "
+              f"{one_ms:.4f} ms", flush=True)
+        if not rel_err <= TOL_KERNEL_REL:
+            raise RuntimeError(f"{label} disagrees with the unsharded "
+                               f"kernel: max rel {rel_err:.3e}")
+        errs[kname] = max(errs[kname], hold_calls(
+            f"mesh {label}", calls, getattr(module, attr), plain, err,
+            bound_of, "the sharded apply"))
+    return errs
+
+
+def one_ulp_up(solver, run):
+    """run() with every output of the solver's kernel applies that a mesh
+    shards (``_apply``, ``_apply_merged``, ``_apply_stokes``) moved up by
+    one ulp: how far ulp-level changes in those values carry through the
+    solve, interface re-matches and GMRES included."""
+    def up(out):
+        if isinstance(out, tuple):
+            return tuple(map(up, out))
+        return torch.nextafter(out, torch.full_like(out, math.inf))
+    names = [n for n in ("_apply", "_apply_merged", "_apply_stokes")
+             if hasattr(solver, n)]
+    for n in names:
+        setattr(solver, n, lambda *a, f=getattr(solver, n): up(f(*a)))
+    try:
+        return run()
+    finally:
+        for n in names:
+            delattr(solver, n)
+
+
+def field_gaps(a, b):
+    """{(field, part): (max |a - b|, max |b|)} over each field of two solve
+    outputs (u, v, p for Stokes), on the grid and on each radial grid."""
+    efs = [o if isinstance(o, tuple) else (o,) for o in (a, b)]
+    return {(i, part): (float((x - y).abs().max()), float(y.abs().max()))
+            for i, (ex, ey) in enumerate(zip(*efs))
+            for part, x, y in zip(("grid", *(f"radial {j}" for j in
+                                             range(len(ex.radials)))),
+                                  (ex.grid, *ex.radials),
+                                  (ey.grid, *ey.radials))}
+
+
+def mesh_solve(label, mesh, solver, run, counters, holds):
+    """One solve + apply_bc with and without ``mesh`` on one collection:
+    equal GMRES iterations, and each field within TOL_MESH of the unsharded
+    one, or within MESH_ULPS times its one-ulp reading where that is larger
+    (the unsharded solve with its sharded applies' outputs one ulp up,
+    ``one_ulp_up``); the mesh run's launches counted (every count set to 0
+    just before it) and held with hold_calls, WARM_RUNS warm solves of each
+    in alternating turns, the device time and idle share of each.  Returns
+    (the mesh run's launches, the largest max abs difference from the plain
+    version) by kernel."""
+    solver.use_mesh(None)
+    for c in counters.values():
+        c.launches = 0
+    base, base_stats = run()
+    base_launches = {n: c.launches for n, c in counters.items()}
+    ulp, _ = one_ulp_up(solver, run)
+    solver.use_mesh(mesh)
+    for c in counters.values():
+        c.launches = 0
+    (out, stats), calls = record_all_launch_args(run, holds)
+    launches = {n: c.launches for n, c in counters.items()}
+    gaps, ulps = field_gaps(out, base), field_gaps(ulp, base)
+    limits = {key: max(TOL_MESH, MESH_ULPS * ulps[key][0]) for key in gaps}
+    (field, part), (gap, scale) = max(gaps.items(), key=lambda kv: kv[1][0])
+    (ufield, upart), (ugap, uscale) = max(ulps.items(),
+                                          key=lambda kv: kv[1][0] / kv[1][1])
+    its, base_its = stats["annular_iterations"], base_stats[
+        "annular_iterations"]
+    print(f"# mesh {label}: iterations {its} (unsharded {base_its}), max "
+          f"|mesh - unsharded| {gap:.3e} (on field {field} {part}, whose "
+          f"max |unsharded| is {scale:.3e}; there one ulp up gives "
+          f"{ulps[field, part][0]:.3e}, limit {limits[field, part]:.3e}); "
+          f"one ulp up: max relative {ugap / uscale:.3e} (field {ufield} "
+          f"{upart}, {ugap:.3e} of {uscale:.3e}); largest share of its "
+          f"limit {max(gaps[k][0] / limits[k] for k in gaps):.3f}; launches "
+          f"{launches} (unsharded {base_launches})", flush=True)
+    if not (all(gaps[k][0] <= limits[k] for k in gaps)
+            and its == base_its):
+        raise RuntimeError(f"mesh {label}: the mesh solve disagrees with "
+                           "the unsharded one")
+    if not sum(launches.values()) > 0:
+        raise RuntimeError(f"mesh {label}: no kernel launched")
+    errs = {}
+    for name, got in calls.items():
+        if len(got) != launches[name]:
+            raise RuntimeError(f"mesh {label}: {len(got)} {name} launches "
+                               f"recorded, {launches[name]} counted")
+        if got:
+            module, attr, plain, err, bound_of = holds[name]
+            errs[name] = hold_calls(f"mesh {label}", got,
+                                    getattr(module, attr), plain, err,
+                                    bound_of, "one mesh solve + apply_bc")
+    warm = {False: [], True: []}
+    for i in range(WARM_RUNS):
+        for sharded in ((False, True) if i % 2 else (True, False)):
+            solver.use_mesh(mesh if sharded else None)
+            warm[sharded].append(timed(run))
+    prof = {}
+    for sharded in (True, False):
+        solver.use_mesh(mesh if sharded else None)
+        prof[sharded] = profile_device(run)
+    solver.use_mesh(None)
+    print(f"# mesh {label}: warm in turns, mesh {warm_text(warm[True])}, "
+          f"unsharded {warm_text(warm[False])}; profiled (3 solves, "
+          f"profiler on): device {prof[True][1]:.3f} ms per solve, idle "
+          f"share {prof[True][2]:.3f} (unsharded {prof[False][1]:.3f} ms, "
+          f"{prof[False][2]:.3f})", flush=True)
+    return launches, errs
+
+
+def mesh_lockstep(mesh):
+    """The lockstep GMRES over stokes_3body's two inclusions with the
+    boundary axis split over ``mesh`` (batched_stokes_solve(mesh=...)),
+    against the same without a mesh: iterations equal, solutions within
+    TOL_MESH of max |x|; both timed (median of 5)."""
+    from ipde_tpu_torch.solvers.annular_stokes import batched_stokes_solve
+    solver, _ = SHARED["mesh stokes_3body [fft]"]
+    (fu, fv), _ = SHARED["stokes_3body"][1]
+    hs = solver.helpers[1:]
+    args = ([h.annular_solver for h in hs], [h.metric for h in hs],
+            [h.annular_rhs(a, b) for h, a, b in zip(hs, fu.radials[1:],
+                                                    fv.radials[1:])],
+            GMRES_TOL, 100, 30)
+
+    def solve(m):
+        out = batched_stokes_solve(*args, mesh=m)
+        torch.cuda.synchronize()
+        return out
+
+    (got, st), (want, wst) = solve(mesh), solve(None)
+    gap = max(float((a - b).abs().max() / b.abs().max())
+              for g, w in zip(got, want) for a, b in zip(g, w))
+    ms = {m is not None: 1e3 * statistics.median(
+        timed(lambda: solve(m)) for _ in range(5)) for m in (mesh, None)}
+    print(f"# mesh stokes_3body inclusions: lockstep GMRES split over the "
+          f"mesh: iterations {st['iterations']} (unsharded "
+          f"{wst['iterations']}), max |mesh - unsharded| / max |x| "
+          f"{gap:.3e}; median of 5: mesh {ms[True]:.2f} ms, unsharded "
+          f"{ms[False]:.2f} ms", flush=True)
+    if not (gap <= TOL_MESH and st["iterations"] == wst["iterations"]):
+        raise RuntimeError("the lockstep GMRES split over the mesh "
+                           "disagrees with the unsharded one")
+
+
+def mesh_mixed(K, SK, counters, holds):
+    """The cross-device copies and gathers, on one card: a mesh of the card
+    and the CPU in turns (a CPU shard takes the plain version, as the
+    wrappers do for a tensor on the CPU).  The four sharded applies at the
+    interface shapes of the solvers of phases 2-4 (every source onto the
+    interface points) on (card, cpu, card, cpu), each within
+    TOL_KERNEL_REL of the unsharded kernel with one launch per card shard;
+    the lockstep GMRES over stokes_3body's two inclusions split over (card,
+    cpu) against the unsharded one (iterations equal, within TOL_MESH of
+    max |x|)."""
+    from ipde_tpu_torch.parallel import sharded as P
+    from ipde_tpu_torch.solvers.annular_stokes import batched_stokes_solve
+    card, cpu = torch.device("cuda", 0), torch.device("cpu")
+    mesh = P.Mesh([card, cpu, card, cpu])
+    rng = np.random.default_rng(9)
+
+    def args(s, n_charges):
+        S = s.grid_src_x.shape[0]
+        q = [torch.as_tensor(rng.standard_normal(S) / S, device=card)
+             for _ in range(n_charges)]
+        return (s.grid_src_x, s.grid_src_y, *q, s.ebdyc.all_interface_x_dev,
+                s.ebdyc.all_interface_y_dev)
+
+    pois, _ = SHARED["mesh poisson_nb1200 [fft]"]
+    sto, _ = SHARED["mesh stokes_tier1 [fft]"]
+    mh = SHARED["mh_dirichlet_k2 [dense] solver"]
+    lap, stk, yuk = args(pois, 1), args(sto, 2), args(mh, 1)
+    cases = (
+        ("laplace_slp", "sharded_laplace_slp_apply", lap,
+         lambda: P.sharded_laplace_slp_apply(mesh, *lap),
+         lambda: K.laplace_slp_apply(*lap)),
+        ("laplace_slp", "source_sharded_laplace_slp_apply", lap,
+         lambda: P.source_sharded_laplace_slp_apply(mesh, *lap),
+         lambda: K.laplace_slp_apply(*lap)),
+        ("stokes_slp", "sharded_stokes_slp_apply", stk,
+         lambda: P.sharded_stokes_slp_apply(mesh, *stk),
+         lambda: SK.stokes_slp_apply(*stk)),
+        ("mh_slp", "sharded_mh_slp_apply (k = 2)", yuk,
+         lambda: P.sharded_mh_slp_apply(mesh, *yuk, mh.k),
+         lambda: K.mh_slp_apply(*yuk, mh.k)))
+    for kname, label, a, sharded, one in cases:
+        before = counters[kname].launches
+        got = sharded()
+        n = counters[kname].launches - before
+        outs = got if isinstance(got, tuple) else (got,)
+        _, rel = holds[kname][3](got, one())
+        print(f"# mesh {label} over {mesh}: T={a[-1].shape[0]} "
+              f"S={a[0].shape[0]}, {n} launches, on "
+              f"{sorted({str(o.device) for o in outs})}, against the "
+              f"unsharded kernel max_rel={rel:.3e} (tol "
+              f"{TOL_KERNEL_REL:.0e})", flush=True)
+        if not (rel <= TOL_KERNEL_REL and n == 2
+                and all(o.device == card for o in outs)):
+            raise RuntimeError(f"{label} over {mesh} disagrees with the "
+                               "unsharded kernel")
+    solver, _ = SHARED["mesh stokes_3body [fft]"]
+    (fu, fv), _ = SHARED["stokes_3body"][1]
+    hs = solver.helpers[1:]
+    rhss = [h.annular_rhs(a, b) for h, a, b in zip(hs, fu.radials[1:],
+                                                   fv.radials[1:])]
+    two = P.Mesh([card, cpu])
+    (got, st), (want, wst) = (batched_stokes_solve(
+        [h.annular_solver for h in hs], [h.metric for h in hs], rhss,
+        GMRES_TOL, 100, 30, mesh=m) for m in (two, None))
+    gap = max(float((a.to(card) - b).abs().max() / b.abs().max())
+              for g, w in zip(got, want) for a, b in zip(g, w))
+    print(f"# mesh stokes_3body inclusions over {two}: iterations "
+          f"{st['iterations']} (unsharded {wst['iterations']}), max |mesh - "
+          f"unsharded| / max |x| {gap:.3e}, results on "
+          f"{sorted({str(a.device) for g in got for a in g})}", flush=True)
+    if not (gap <= TOL_MESH and st["iterations"] == wst["iterations"]):
+        raise RuntimeError(f"the lockstep GMRES over {two} disagrees with "
+                           "the unsharded one")
+
+
+def mesh_phase(K, SK, counters):
+    """Phase 8 (see the module docstring); returns (main-path launches by
+    kernel, max abs difference from the plain version by kernel)."""
+    from ipde_tpu_torch.entry import dryrun_multichip
+    from ipde_tpu_torch.parallel.sharded import make_mesh
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    mesh = make_mesh(devices=[torch.device("cuda", i % cards)
+                              for i in range(MESH_SHARDS)])
+    print(f"# mesh: {mesh.size} shards round-robin over {cards} card(s): "
+          f"physical {mesh.physical}, {mesh}", flush=True)
+    holds = kernel_holds(K, SK)
+    errs = mesh_applies(mesh, K, SK, counters, holds)
+    launches = {name: 0 for name in counters}
+    for key in ("mesh stokes_tier1 [dense]", "mesh stokes_tier1 [fft]",
+                "mesh poisson_nb1200 [dense]", "mesh poisson_nb1200 [fft]",
+                "mesh stokes_3body [fft]"):
+        got, held = mesh_solve(key[len("mesh "):], mesh, *SHARED[key],
+                               counters, holds)
+        for name, n in got.items():
+            launches[name] += n
+        for name, e in held.items():
+            errs[name] = max(errs[name], e)
+    mesh_lockstep(mesh)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    grid, physical = dryrun_multichip(MESH_SHARDS)
+    torch.cuda.synchronize()
+    got = {name: c.launches for name, c in counters.items()}
+    print(f"# mesh dryrun_multichip({MESH_SHARDS}): grid {tuple(grid.shape)}"
+          f", finite, physical {physical}, {time.perf_counter() - t0:.2f} s "
+          f"(setup included), launches {got}", flush=True)
+    if got["laplace_slp"] <= 0:
+        raise RuntimeError("dryrun_multichip launched no laplace_slp")
+    for name, n in got.items():
+        launches[name] += n
+    mesh_mixed(K, SK, counters, holds)
+    print(f"# phase 8 {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launches, errs
+
+
 def main():
     t_start = time.perf_counter()
     # ---- phase 1: device, card, build ------------------------------------
@@ -2376,11 +2771,16 @@ def main():
     for name, n in fourth_launches.items():
         launches[name] += n
         errs[name] = max(errs[name], fourth_errs.get(name, 0.0))
+    # ---- phase 8: the mesh --------------------------------------------------
+    mesh_launches, mesh_errs = mesh_phase(K, SK, counters)
+    for name, n in mesh_launches.items():
+        launches[name] += n
+        errs[name] = max(errs[name], mesh_errs[name])
     for entry in kernels:
         entry["launches"] += launches[entry["name"]]
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[entry["name"]])
 
-    # ---- phase 8: results --------------------------------------------------
+    # ---- phase 9: results --------------------------------------------------
     print(f"# total {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

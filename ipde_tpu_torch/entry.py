@@ -1,13 +1,21 @@
-"""Entry point of the port: the counterpart of
-``__graft_entry__.entry()``.
+"""Entry points of the port: the counterparts of
+``__graft_entry__.entry()`` and ``dryrun_multichip()``.
 
 ``entry()`` returns ``(fn, args)``: ``fn(*args)`` runs one full interior
 Poisson solve (box FFT solve, annular GMRES, QFS coupling, layer potentials
 through the CUDA kernels) plus the Dirichlet BIE correction at nb=128, M=8
 on the card, and returns the corrected solution on the grid.  ipde_tpu's
 ``planify`` (plan arrays as jit arguments) has no counterpart: the port
-runs eagerly.  ``dryrun_multichip`` waits for the multi-GPU layer
-(ROADMAP.md Queue 1 item 9).
+runs eagerly.
+
+``dryrun_multichip(n)`` runs one solve + BIE correction of the two-body
+problem (an interior boundary and a same-shape inclusion, nb=128, M=6)
+under ``use_mesh`` with a mesh of n shards (``parallel/sharded.py``):
+target-sharded layer potentials and the lockstep annular GMRES split along
+its boundary axis.  The shards go round-robin over the cards torch sees, so
+on one card all n shards share it; ``device="cpu"`` puts them all on the
+CPU.  ipde_tpu's virtual CPU devices (``_pin_cpu_mesh``) have no
+counterpart.
 """
 
 from __future__ import annotations
@@ -24,9 +32,11 @@ def frc(x, y):
             * np.exp(np.sin(x)) * np.sin(y))
 
 
-def build_problem(nb: int = 128, M: int = 8, device=None):
-    """__graft_entry__._build_problem's one-boundary Poisson problem on
-    ``device`` (None: the card): (solver, bie, f, bc)."""
+def build_problem(nb: int = 128, M: int = 8, device=None,
+                  two_body: bool = False):
+    """__graft_entry__._build_problem's Poisson problem on ``device``
+    (None: the card): (solver, bie, f, bc); with ``two_body``, with its
+    inclusion of the same (nb, M), which takes the lockstep annular GMRES."""
     from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
     from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
     from ipde_tpu_torch.geometry.curve import star
@@ -37,9 +47,11 @@ def build_problem(nb: int = 128, M: int = 8, device=None):
     bdy = star(nb, a=0.1, f=3)
     # keep the annulus comfortably inside the curvature radius
     bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
-    ebdyc = EmbeddedBoundaryCollection(
-        [EmbeddedBoundary(bdy, True, M, bh, qfs_tolerance=1e-12)],
-        device=device)
+    ebdys = [EmbeddedBoundary(bdy, True, M, bh, qfs_tolerance=1e-12)]
+    if two_body:
+        inc = star(nb, x=0.0, y=0.0, r=0.22, a=0.05, f=4)
+        ebdys.append(EmbeddedBoundary(inc, False, M, bh, qfs_tolerance=1e-12))
+    ebdyc = EmbeddedBoundaryCollection(ebdys, device=device)
     ebdyc.generate_grid(bh)
     f = EmbeddedFunction.from_function(ebdyc, frc)
     bc = BoundaryFunction.from_function(ebdyc, sol)
@@ -63,3 +75,32 @@ def entry(device=None):
 
     step.solver = solver
     return step, (f.grid, f.radials[0])
+
+
+def dryrun_multichip(n_devices: int, device=None):
+    """One sharded solve + apply_bc (GMRES tol 1e-10, maxiter 40, restart
+    20) of the two-body problem (nb=128, M=6) on a mesh of ``n_devices``
+    shards: round-robin over the CUDA cards torch sees (raises without
+    one), or all on ``device`` when given (e.g. ``"cpu"``).  Raises unless
+    the result is finite; returns (the grid solution, the number of
+    distinct devices of the mesh)."""
+    import torch
+
+    from ipde_tpu_torch.parallel.sharded import make_mesh
+
+    if device is None:
+        cards = torch.cuda.device_count()
+        if cards == 0:
+            raise RuntimeError("dryrun_multichip: torch sees no CUDA device; "
+                               "pass device='cpu' for the CPU")
+        devices = [torch.device("cuda", i % cards) for i in range(n_devices)]
+    else:
+        devices = [torch.device(device)] * n_devices
+    mesh = make_mesh(devices=devices)
+    solver, bie, f, bc = build_problem(nb=128, M=6, device=mesh.lead,
+                                       two_body=True)
+    solver.use_mesh(mesh)
+    ue = bie.apply_bc(solver(f, tol=1e-10, maxiter=40, restart=20), bc)
+    if not bool(torch.isfinite(ue.grid).all()):
+        raise RuntimeError("dryrun_multichip: the solution is not finite")
+    return ue.grid, mesh.physical

@@ -176,8 +176,11 @@ def check_f64_1d(sources: dict, targets: dict):
 
 def _launch(name: str, fn, args, dev: torch.device):
     """Call the launcher ``fn`` with ``args`` + (device, current stream);
-    raise if the launch failed."""
-    err = fn(*args, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    raise if the launch failed.  The launcher sets the CUDA device to
+    ``dev`` and does not set it back: the call runs under torch's device
+    guard, which restores the caller's current device."""
+    with torch.cuda.device(dev):
+        err = fn(*args, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
 

@@ -18,11 +18,14 @@ residual rows = [PDE rows (M-2) ; lbc row ; ubc row], matching the RHS
 Several annuli of one (M, n) solve as one batch (``batched_annular_solve``):
 their operator bundles are stacked on a leading axis and one lockstep GMRES
 (``ops.gmres.batched_gmres``) applies all B matvecs and preconditioners in
-each call, with one host sync per iteration for the batch.
+each call, with one host sync per iteration for the batch.  With a mesh the
+batch is split along the boundary axis into per-device groups
+(``shard_boundary_axis``).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -32,6 +35,7 @@ from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
 from ipde_tpu_torch.ops.fourier import (TanPlan, make_tan_plan, tan_deriv,
                                         tan_irfft, tan_rfft)
 from ipde_tpu_torch.ops.gmres import batched_gmres, gmres
+from ipde_tpu_torch.parallel.sharded import Mesh, gather
 
 
 class AnnularOps(NamedTuple):
@@ -73,6 +77,52 @@ def stack_ops(ops_list: Sequence[NamedTuple]) -> NamedTuple:
     return type(first)(*out)
 
 
+def shard_boundary_axis(mesh, ops_list: Sequence[NamedTuple]):
+    """The B same-shape bundles of ``ops_list`` in per-device groups along
+    the boundary axis: [(device, rows, stacked bundle on that device)], the
+    B rows split ``mesh.size`` ways as ``torch.tensor_split`` splits them,
+    empty groups dropped (B is not padded).  The counterpart of
+    ``ipde_tpu``'s shard_boundary_axis.  The split of the last ``ops_list``
+    is kept on the mesh, so a solver's every solve stacks and copies its
+    bundles once."""
+    key = tuple(map(id, ops_list))
+    memo = mesh.boundary_groups
+    if memo is not None and memo[0] == key:
+        return memo[2]
+    groups = []
+    for dev, rows in zip(mesh.devices,
+                         torch.tensor_split(torch.arange(len(ops_list)),
+                                            mesh.size)):
+        if rows.numel() == 0:
+            continue
+        ops = stack_ops([ops_list[i] for i in rows.tolist()])
+        moved = []
+        for v in ops:
+            if isinstance(v, torch.Tensor):
+                v = v.to(dev)
+            elif isinstance(v, TanPlan) and v.ik.device != dev:
+                v = copy.copy(v)
+                v.ik = v.ik.to(dev)
+            moved.append(v)
+        groups.append((dev, slice(int(rows[0]), int(rows[-1]) + 1),
+                       type(ops)(*moved)))
+    # the bundles are held with their ids, so no other list takes the key
+    mesh.boundary_groups = (key, list(ops_list), groups)
+    return groups
+
+
+def lockstep_maps(ops_list: Sequence[NamedTuple], mesh, fns, lead):
+    """For each ``fn(bundle, v)`` of ``fns`` the (B, N) -> (B, N) map that
+    ``batched_gmres`` takes: group by group of ``shard_boundary_axis`` over
+    ``mesh`` (None: one group on ``lead``) on each group's device, gathered
+    on ``lead`` in group order (the Krylov basis, Hessenberg and host sync
+    stay on ``lead``)."""
+    groups = shard_boundary_axis(mesh or Mesh([lead]), ops_list)
+    return [lambda v, fn=fn: gather([fn(ops, v[rows].to(dev))
+                                     for dev, rows, ops in groups], lead)
+            for fn in fns]
+
+
 def _matvec(ops: AnnularOps, u_flat: torch.Tensor, M: int,
             n: int) -> torch.Tensor:
     """A u for flat u of shape (M n,), or (B, M n) with batched ops."""
@@ -111,20 +161,26 @@ def check_converged(label: str, residual: float, iterations: int,
 
 
 def batched_annular_solve(solvers, metrics, rhss, tol: float = 1e-12,
-                          maxiter: int = 200, restart: int = 40):
+                          maxiter: int = 200, restart: int = 40, mesh=None):
     """Solve B same-shape annular problems in one lockstep GMRES.
 
     solvers/metrics are per boundary (one (M, n) for all); rhss is a list of
     (M, n) right-hand sides already in residual layout (``build_rhs``).
-    Returns (list of (M, n) solutions, {'iterations': [B ints],
-    'residual': [B floats]}); raises as ``solve_with_stats`` does when a
-    system's true residual ends above tol."""
-    ops = stack_ops([s.make_ops(m) for s, m in zip(solvers, metrics)])
+    With a ``mesh`` (``parallel.sharded.Mesh``) the boundary axis is split
+    over its devices (``shard_boundary_axis``): each group's matvec and
+    preconditioner run on its device, the Krylov basis, Hessenberg and host
+    sync stay on the right-hand sides' device.  Returns (list of (M, n)
+    solutions, {'iterations': [B ints], 'residual': [B floats]}); raises as
+    ``solve_with_stats`` does when a system's true residual ends above
+    tol."""
     M, n = solvers[0].M, solvers[0].n
-    res = batched_gmres(lambda v: _matvec(ops, v, M, n),
-                        torch.stack([r.reshape(-1) for r in rhss]),
-                        precond=lambda v: _precond(ops, v, M, n), tol=tol,
-                        maxiter=maxiter, restart=restart)
+    b = torch.stack([r.reshape(-1) for r in rhss])
+    mv, pc = lockstep_maps([s.make_ops(m) for s, m in zip(solvers, metrics)],
+                           mesh, (lambda o, v: _matvec(o, v, M, n),
+                                  lambda o, v: _precond(o, v, M, n)),
+                           b.device)
+    res = batched_gmres(mv, b, precond=pc, tol=tol, maxiter=maxiter,
+                        restart=restart)
     for s, it, r in zip(solvers, res.iterations, res.residual):
         s.iterations_last_call = it
         check_converged("annular", r, it, tol, maxiter, restart)

@@ -34,7 +34,8 @@ from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
 from ipde_tpu_torch.ops.fourier import (TanPlan, make_tan_plan, tan_deriv,
                                         tan_irfft, tan_rfft)
 from ipde_tpu_torch.ops.gmres import batched_gmres, gmres
-from ipde_tpu_torch.solvers.annular_scalar import check_converged, stack_ops
+from ipde_tpu_torch.solvers.annular_scalar import (check_converged,
+                                                   lockstep_maps)
 
 
 class StokesOps(NamedTuple):
@@ -118,17 +119,22 @@ def _precond(ops: StokesOps, v: torch.Tensor, M: int,
 
 
 def batched_stokes_solve(solvers, metrics, rhss, tol: float = 1e-12,
-                         maxiter: int = 200, restart: int = 50):
+                         maxiter: int = 200, restart: int = 50, mesh=None):
     """Solve B same-shape annular Stokes problems in one lockstep GMRES.
 
-    rhss: flat right-hand sides from AnnularStokesSolver.build_rhs.  Returns
-    (list of (ur, ut, p_full) triples, {'iterations': [B ints], 'residual':
-    [B floats]}); raises as ``solve_with_stats`` does."""
-    ops = stack_ops([s.make_ops(m) for s, m in zip(solvers, metrics)])
+    rhss: flat right-hand sides from AnnularStokesSolver.build_rhs.  With a
+    ``mesh`` the boundary axis is split over its devices, as in
+    ``batched_annular_solve``.  Returns (list of (ur, ut, p_full) triples,
+    {'iterations': [B ints], 'residual': [B floats]}); raises as
+    ``solve_with_stats`` does."""
     M, n = solvers[0].M, solvers[0].n
-    res = batched_gmres(lambda v: _matvec(ops, v, M, n), torch.stack(rhss),
-                        precond=lambda v: _precond(ops, v, M, n), tol=tol,
-                        maxiter=maxiter, restart=restart)
+    b = torch.stack(rhss)
+    mv, pc = lockstep_maps([s.make_ops(m) for s, m in zip(solvers, metrics)],
+                           mesh, (lambda o, v: _matvec(o, v, M, n),
+                                  lambda o, v: _precond(o, v, M, n)),
+                           b.device)
+    res = batched_gmres(mv, b, precond=pc, tol=tol, maxiter=maxiter,
+                        restart=restart)
     for s, it, r in zip(solvers, res.iterations, res.residual):
         s.iterations_last_call = it
         check_converged("annular Stokes", r, it, tol, maxiter, restart)

@@ -7,7 +7,9 @@ assembled and inverted on the host at setup; the solve-time path is matmuls,
 the field on the grid (the solver's FFT evaluator over the BIE's own QFS
 sources with ``grid_backend="fft"``, the CUDA kernel at every physical point
 with ``"dense"``) and dense layer evaluations onto the radial grids in the
-CUDA kernel.
+CUDA kernel.  The scalar BIEs follow their solver's ``use_mesh``: their
+kernel applies then run target-sharded, as in ipde_tpu;
+``StokesDirichletBIE`` stays on one device, as ipde_tpu's does.
 
 Dirichlet representation: u_H = sum_j DLP_j[tau_j], collocated on every
 boundary with the one-sided limit taken from the physical side; for Stokes
@@ -107,12 +109,21 @@ class _ScalarBIE:
             new_grid = ue.grid.reshape(-1).index_add(0, self.phys_flat,
                                                      grid_vals)\
                 .reshape(ue.grid.shape)
+        # the radial fields: through the stratified plans, or under the
+        # solver's mesh (read here, so a BIE built before use_mesh follows
+        # it) every source at once onto each ravelled radial grid (the
+        # helpers' radial_tx, radial_ty), sharded
         new_radials = list(ue.radials)
-        for j, sig in enumerate(sigmas):
-            for i in range(len(new_radials)):
-                new_radials[i] = new_radials[i] + self.radial_plans[i][j].apply(
-                    lambda sx, sy, ws, f, tx, ty: solver._apply_raw(
-                        sx, sy, sig[::f] * ws, tx, ty))
+        for j, (src, sig) in enumerate(zip(self.src_list, sigmas)):
+            for i, (r, h) in enumerate(zip(new_radials, solver.helpers)):
+                if solver._mesh is None:
+                    v = self.radial_plans[i][j].apply(
+                        lambda sx, sy, ws, f, tx, ty: solver._apply_raw(
+                            sx, sy, sig[::f] * ws, tx, ty))
+                else:
+                    v = solver._apply(src, sig, h.radial_tx, h.radial_ty)\
+                        .reshape(r.shape)
+                new_radials[i] = r + v
         return EmbeddedFunction(new_grid, new_radials)
 
 

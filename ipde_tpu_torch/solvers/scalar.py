@@ -31,6 +31,11 @@ default, evaluates the merged sigma_g on the whole grid with the free-space
 FFT evaluator (``ops/grid_eval.py``) and at the interfaces with the CUDA
 kernel; ``"dense"`` sums it directly at every physical-not-in-annulus grid
 point and the interfaces in one kernel launch.
+
+Under ``use_mesh`` (ipde_tpu's multi-device path; ``parallel/sharded.py``)
+steps 4-5 and the BIE fields shard their targets over the mesh, step 5 with
+every source in place of the stratified plan, and step 3's lockstep GMRES
+its boundary axis.
 """
 
 from __future__ import annotations
@@ -50,6 +55,9 @@ from ipde_tpu_torch.ops.fd import fd_x_4, fd_y_4
 from ipde_tpu_torch.ops.grid_eval import FreespaceGridEvaluator
 from ipde_tpu_torch.ops.interp import PolyInterpolator2D
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
+from ipde_tpu_torch.parallel.sharded import (Mesh, check_lead,
+                                             sharded_laplace_slp_apply,
+                                             sharded_mh_slp_apply)
 from ipde_tpu_torch.qfs.qfs import QFSEvaluator, laplace_qfs, mh_qfs
 from ipde_tpu_torch.solvers.annular_scalar import (
     AnnularModifiedHelmholtzSolver, AnnularPoissonSolver,
@@ -109,10 +117,16 @@ class _ScalarHelper:
         self.dn_to_ifc = f64(ebdy.interp_dn_to_interface)
         self.ifc_normal = (f64(ifc.normal_x), f64(ifc.normal_y))
         # stratified source subsampling for the dense radial apply in
-        # `correct` (rows far from the source curve need fewer sources)
+        # `correct` (rows far from the source curve need fewer sources);
+        # under a mesh the apply takes every source onto the ravelled radial
+        # targets instead, as ipde_tpu's does
         self.radial_plan = StratifiedRadialApply(
             self.radial_source, ebdy.radial_x, ebdy.radial_y,
             k_density=ebdy.bdy.N // 2, device=dev)
+        # the ravelled radial grid: the targets of the mesh branches here
+        # and in the BIEs
+        self.radial_tx = f64(ebdy.radial_x.ravel())
+        self.radial_ty = f64(ebdy.radial_y.ravel())
         self.annular_solver.make_ops(self.metric)   # warm the ops cache
         self.zero_bc = torch.zeros(ebdy.bdy.N, dtype=torch.float64,
                                    device=dev)
@@ -148,6 +162,10 @@ class _ScalarHelper:
         # own_src_to_ifc is a naive form: quadrature weights already folded in
         w = self.own_src_to_ifc @ sigma_g
         sigma_r_tot = sigma_r + self.qfs_r.u2s(bu - w)
+        if solver._mesh is not None:
+            rslp = solver._apply(self.radial_source, sigma_r_tot,
+                                 self.radial_tx, self.radial_ty)
+            return ur + rslp.reshape(ur.shape)
         rslp = self.radial_plan.apply(
             lambda sx, sy, ws, f, tx, ty: solver._apply_raw(
                 sx, sy, sigma_r_tot[::f] * ws, tx, ty))
@@ -174,6 +192,9 @@ class ScalarSolver:
     GMRES tol: the annular solves check the TRUE residual and raise above
     tol; its float64 floor is about 3e-14 (Poisson), so the default is
     1e-12, not ipde_tpu's 1e-14.
+
+    ``use_mesh(mesh)`` shards the dense layer-potential applies over a
+    ``parallel.sharded.Mesh``, as ``ipde_tpu``'s does.
     """
 
     def __init__(self, ebdyc: EmbeddedBoundaryCollection,
@@ -229,7 +250,26 @@ class ScalarSolver:
                                         ebdyc.all_interface_x_dev])
             self._dense_ty = torch.cat([ebdyc.pna_y_dev[order],
                                         ebdyc.all_interface_y_dev])
+        self._mesh = None
+        self._one_device = Mesh([self.device])
         self.iteration_counts = []
+
+    @property
+    def _shards(self) -> Mesh:
+        """What the kernel applies run over: ``use_mesh``'s mesh, else one
+        shard on the solver's device."""
+        return self._mesh or self._one_device
+
+    def use_mesh(self, mesh):
+        """Shard over ``mesh`` (a ``parallel.sharded.Mesh`` whose lead is
+        the collection's device; None: back to one device): the merged
+        sigma_g apply, the radial corrections and the BIE fields run
+        target-sharded, and the lockstep annular GMRES of same-shape
+        boundaries splits its boundary axis over the mesh.  The box FFT
+        solve and the FFT grid evaluators stay on ``mesh.lead`` (cuFFT on
+        one card): ipde_tpu's sharded DFT-as-matmul passes are a TPU
+        workaround the port does not carry."""
+        self._mesh = check_lead(mesh, self.device)
 
     def _make_grid_evaluator(self, gx, gy) -> FreespaceGridEvaluator:
         """The FFT evaluator of this PDE's kernel for sources (gx, gy),
@@ -325,7 +365,7 @@ class ScalarSolver:
                 [h.annular_solver for h in self.helpers],
                 [h.metric for h in self.helpers],
                 [h.annular_rhs(fr) for h, fr in zip(self.helpers, f.radials)],
-                tol, maxiter, restart)
+                tol, maxiter, restart, self._shards)
             for h, it in zip(self.helpers, bstats["iterations"]):
                 h.iterations_last_call = it
             sig_gs, sig_rs = map(list, zip(*(
@@ -418,14 +458,15 @@ class PoissonSolver(ScalarSolver):
 
     def _apply(self, src_curve, density, tx, ty):
         d = src_curve.dev(self.device)
-        return kernels.laplace_slp_apply(d["x"], d["y"],
+        return sharded_laplace_slp_apply(self._shards, d["x"], d["y"],
                                          density * d["weights"], tx, ty)
 
     def _apply_raw(self, sx, sy, weighted, tx, ty):
         return kernels.laplace_slp_apply(sx, sy, weighted, tx, ty)
 
     def _apply_merged(self, sigma_g, tx, ty):
-        return kernels.laplace_slp_apply(self.grid_src_x, self.grid_src_y,
+        return sharded_laplace_slp_apply(self._shards, self.grid_src_x,
+                                         self.grid_src_y,
                                          sigma_g * self.grid_src_w, tx, ty)
 
     def _grid_symbol(self):
@@ -482,14 +523,15 @@ class ModifiedHelmholtzSolver(ScalarSolver):
 
     def _apply(self, src_curve, density, tx, ty):
         d = src_curve.dev(self.device)
-        return kernels.mh_slp_apply(d["x"], d["y"], density * d["weights"],
-                                    tx, ty, self.k)
+        return sharded_mh_slp_apply(self._shards, d["x"], d["y"],
+                                    density * d["weights"], tx, ty, self.k)
 
     def _apply_raw(self, sx, sy, weighted, tx, ty):
         return kernels.mh_slp_apply(sx, sy, weighted, tx, ty, self.k)
 
     def _apply_merged(self, sigma_g, tx, ty):
-        return kernels.mh_slp_apply(self.grid_src_x, self.grid_src_y,
+        return sharded_mh_slp_apply(self._shards, self.grid_src_x,
+                                    self.grid_src_y,
                                     sigma_g * self.grid_src_w, tx, ty, self.k)
 
     def _grid_symbol(self):

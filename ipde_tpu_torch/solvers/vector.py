@@ -28,8 +28,9 @@ ipde_tpu.solvers.vector:
      per strip and the radial->grid merge.
 
 Ported: one interior boundary plus any number of inclusions
-(``interior=False``), both grid backends, ``helpers=`` reuse and both
-solver types.
+(``interior=False``), both grid backends, ``helpers=`` reuse, both
+solver types and ``use_mesh`` (step 4's kernel apply target-sharded over a
+mesh, step 3's lockstep GMRES split along its boundary axis).
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ from ipde_tpu_torch.ops.fourier import FourierPlan1D
 from ipde_tpu_torch.ops.grid_eval import StokesFreespaceGridEvaluator
 from ipde_tpu_torch.ops.interp import PolyInterpolator2D
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
+from ipde_tpu_torch.parallel.sharded import (Mesh, check_lead,
+                                             sharded_stokes_slp_apply)
 from ipde_tpu_torch.qfs.qfs import QFSEvaluator
 from ipde_tpu_torch.solvers.annular_stokes import (AnnularStokesSolver,
                                                    batched_stokes_solve)
@@ -292,7 +295,31 @@ class StokesSolver:
                                         ebdyc.all_interface_x_dev])
             self._dense_ty = torch.cat([ebdyc.pna_y_dev,
                                         ebdyc.all_interface_y_dev])
+        self._mesh = None
+        self._one_device = Mesh([self.device])
         self.iteration_counts = []
+
+    def use_mesh(self, mesh):
+        """Shard over ``mesh`` (a ``parallel.sharded.Mesh`` whose lead is
+        the collection's device; None: back to one device): the merged
+        sigma_g Stokeslet apply runs target-sharded and the lockstep
+        annular GMRES of same-shape boundaries splits its boundary axis
+        over the mesh.  The radial corrections keep their stratified plans
+        and ``StokesDirichletBIE`` stays on one device, as in ipde_tpu; the
+        box FFT solve and the FFT grid evaluators stay on ``mesh.lead``
+        (cuFFT on one card)."""
+        self._mesh = check_lead(mesh, self.device)
+
+    @property
+    def _shards(self) -> Mesh:
+        """What the kernel applies run over: ``use_mesh``'s mesh, else one
+        shard on the solver's device."""
+        return self._mesh or self._one_device
+
+    def _apply_stokes(self, sx, sy, wfx, wfy, tx, ty):
+        """The Stokeslet apply, target-sharded over ``_shards``."""
+        return sharded_stokes_slp_apply(self._shards, sx, sy, wfx, wfy, tx,
+                                        ty)
 
     def _make_grid_evaluator(self, gx, gy) -> StokesFreespaceGridEvaluator:
         """The Stokeslet FFT evaluator for sources (gx, gy), truncated for
@@ -352,7 +379,7 @@ class StokesSolver:
                 [h.metric for h in self.helpers],
                 [h.annular_rhs(fur, fvr) for h, fur, fvr in
                  zip(self.helpers, fu.radials, fv.radials)],
-                tol, maxiter, restart)
+                tol, maxiter, restart, self._shards)
             for h, it in zip(self.helpers, bstats["iterations"]):
                 h.iterations_last_call = it
             uvps, sig_gs, sig_rs = map(list, zip(*(
@@ -385,11 +412,11 @@ class StokesSolver:
             uc, vc, pc = (c + torch.where(self._pna_mask, g, 0.0)
                           for c, g in zip((uc, vc, pc),
                                           self.grid_eval(wfx, wfy)))
-            giu, giv, gip = sk.stokes_slp_apply(
+            giu, giv, gip = self._apply_stokes(
                 self.grid_src_x, self.grid_src_y, wfx, wfy,
                 ebdyc.all_interface_x_dev, ebdyc.all_interface_y_dev)
         else:
-            gu, gv, gp = sk.stokes_slp_apply(
+            gu, gv, gp = self._apply_stokes(
                 self.grid_src_x, self.grid_src_y, wfx, wfy, self._dense_tx,
                 self._dense_ty)
             n_pna = ebdyc.pna_x.size

@@ -100,8 +100,8 @@ phase prints its seconds):
        - fourth-order Poisson on phase 2's collection (PoissonSolver(...,
          solver_type="fourth"), fft grid backend, DirichletBIE): error
          within 1% (either side) of ipde_tpu's CPU error on the same
-         problem (IPDE_TPU_FOURTH_CPU, from
-         tools/ipde_tpu_fourth_reference.py) and < 5e-6 (tests/test_collection_calculus.py:97), residual <= tol,
+         problem with the same setup backend (IPDE_TPU_FOURTH_CPU, from
+         tools/ipde_tpu_fourth_reference.py; setup_reference) and < 5e-6 (tests/test_collection_calculus.py:97), residual <= tol,
          laplace_slp launches; the timing lines of the other phases with
          phase 2's spectral error beside them; every distinct launch held
          to the plain version, timed, two runs bit for bit;
@@ -122,8 +122,9 @@ phase prints its seconds):
          torch_advection_convergence.py (dt = 0.1, nb = 200, M = 10,
          T = 0.2; FE and BDF2) through their own run_case on the card,
          and torch_stokes_refinement.py (100, 8) with its REFERENCE_ERR
-         rule, each within 1% of ipde_tpu's CPU value
-         (IPDE_TPU_EXAMPLES_CPU; for the Stokes row ipde_tpu with the
+         rule, each within 1% of ipde_tpu's CPU value with the same
+         setup backend (IPDE_TPU_EXAMPLES_CPU; for the Stokes row ipde_tpu
+         with the
          port's BIE radial plans); the LEDGER_TPU.json rows printed beside
          them; they record nothing;
        - ipde_tpu_torch.entry.entry(): one fn(*args) on the card, its error
@@ -166,8 +167,25 @@ phase prints its seconds):
          GMRES over stokes_3body's inclusions split over (card, cpu)
          against the unsharded one (iterations equal, within 1e-12 of
          max |x|).
-  9. print the kernels' JSON line, the card's name and power limit, then
+  9. the two setup backends (ipde_tpu_torch/ops/forms_dev.py, the
+     "device" backend of qfs/qfs.py and solvers/bie.py) on the collections
+     of phases 2-4 (Poisson nb=1200, Stokes tier 1, Yukawa k = 2 Dirichlet)
+     and on the small k = 2 Neumann problem of
+     tests/test_device_setup_path.py (star(300, a=0.2, f=5), M=12; limit
+     5e-9): each problem's solver and BIE built with IPDE_QFS_BACKEND=host
+     and =device, each setup split by part (tools/torch_profile_setup.py's
+     sections), its peak device memory, the shifted Cholesky retries of the
+     device composes and ||A M - F B|| / ||F B|| of the grid-side QFS maps;
+     every device form of the problem's kernel against its host twin at the
+     production shape (<= 1e-12 of its max); one solve + apply_bc of each
+     backend held to the problem's limit above, the gap between the two
+     solutions; the device-backend solve's launches counted (every count
+     set to 0 just before it) and held with hold_calls.
+ 10. print the kernels' JSON line, the card's name and power limit, then
      the device JSON line last.
+Phases 2-8 build their setups with the backend qfs.auto_backend picks: on
+the card "device" from qfs.DEVICE_MIN boundary points (forms born on the
+card, min-norm CholeskyQR2 composes, torch.linalg.inv for the BIEs).
 The four solves above run with grid_backend="dense": the merged sigma_g and
 the BIE field go onto the physical grid points through the CUDA kernels.
 Then the Poisson, Stokes and k = 2 Yukawa problems run again on the same
@@ -289,23 +307,38 @@ OPS_PER_PAIR = {"laplace_slp": 9, "stokes_slp": 22, "laplace_grad": 12}
 # (+87); dead (z > 36): the compare (+1)
 MH_OPS_PER_PAIR = {"series": 82, "cheb": 98, "dead": 12}
 # phase 7: ipde_tpu's errors on the CPU, unrounded, from
-#   JAX_PLATFORMS=cpu python tools/ipde_tpu_fourth_reference.py
-# solver_type="fourth" on phase 2's Poisson problem and on phase 5's
-# stokes_3body (with the port's BIE radial plans); the port is held to
-# each within 1% (either side) and below the asserts of
+#   JAX_PLATFORMS=cpu IPDE_QFS_BACKEND=<backend> \
+#       python tools/ipde_tpu_fourth_reference.py
+# for each setup backend ("device": ipde_tpu's device-built forms and
+# min-norm composes, whose band-limited source compression moves the
+# fourth-order stokes_3body error by 6%; the port's device backend is the
+# same algorithm); solver_type="fourth" on phase 2's Poisson problem and on
+# phase 5's stokes_3body (with the port's BIE radial plans); the port is
+# held to the value of the backend its setup takes (setup_reference), each
+# within 1% (either side) and below the asserts of
 # tests/test_collection_calculus.py:97, 123
-IPDE_TPU_FOURTH_CPU = {"poisson": 1.905043139904805e-08,
-                       "stokes_3body": 2.4820868565339493e-07}
+IPDE_TPU_FOURTH_CPU = {
+    "host": {"poisson": 1.905043139904805e-08,
+             "stokes_3body": 2.4820868565339493e-07},
+    "device": {"poisson": 1.9036403453576156e-08,
+               "stokes_3body": 2.631788796891854e-07}}
 TOL_FOURTH_REL = 0.01
 TOL_FOURTH = {"poisson": 5e-6, "stokes_3body": 2e-5}
 # the smallest default row of four example scripts (same tool, --cases
 # examples: three through their own run_case, stokes_refinement's (100, 8)
-# with the port's BIE radial plans); the port is held to each within 1%
-IPDE_TPU_EXAMPLES_CPU = {"poisson_refinement": 2.8318152933692886e-08,
-                         "mh_neumann_refinement": 9.958260460685153e-08,
-                         "advection_convergence_fe": 0.01295928864308804,
-                         "advection_convergence_bdf2": 0.008691227226839793,
-                         "stokes_refinement": 1.3272890538151838e-05}
+# with the port's BIE radial plans), each setup backend; the port is held
+# to each within 1%
+IPDE_TPU_EXAMPLES_CPU = {
+    "host": {"poisson_refinement": 2.8318152933692886e-08,
+             "mh_neumann_refinement": 9.958260460685153e-08,
+             "advection_convergence_fe": 0.01295928864308804,
+             "advection_convergence_bdf2": 0.008691227226839793,
+             "stokes_refinement": 1.3272890538151838e-05},
+    "device": {"poisson_refinement": 2.831861167784666e-08,
+               "mh_neumann_refinement": 9.997140293371842e-08,
+               "advection_convergence_fe": 0.01295928864308804,
+               "advection_convergence_bdf2": 0.008691227226839793,
+               "stokes_refinement": 1.327368834469489e-05}}
 TOL_EXAMPLE_REL = 0.01
 # the periodic evaluator: a 1024 x 1024 grid of [0, 2 pi]^2, 3,600 sources
 # on a star plus 16 within r_cut of an edge or a corner; Yukawa at kappa =
@@ -323,7 +356,12 @@ TOL_PERIODIC = 1e-9
 MESH_SHARDS = 4
 TOL_MESH = 1e-12
 MESH_ULPS = 16
-# what earlier phases leave for phase 7 to reuse (collections, errors)
+# phase 9: the small Neumann problem of tests/test_device_setup_path.py
+# (k, nb, M, its error limit there), and how far a device-built form may be
+# from its host twin, relative to the form's max (tests/test_forms_dev.py)
+SETUP_NEUMANN = (2.0, 300, 12, 5e-9)
+SETUP_FORM_TOL = 1e-12
+# what earlier phases leave for phases 7-9 to reuse (collections, errors)
 SHARED = {}
 
 
@@ -1197,6 +1235,7 @@ def stokes_phase(dev, SK, counters):
         return (u, v, p), stats
 
     ((u, v, p), stats), launches, first_s, warm = timed_runs(run, counters)
+    SHARED["stokes_tier1"] = (ebdyc, (fu, fv), (bcu, bcv))
     SHARED["mesh stokes_tier1 [dense]"] = (solver, solve_run(
         solver, bie, (fu, fv), (bcu, bcv)))
     vel = [max_err(ebdyc, u, usol), max_err(ebdyc, v, vsol)]
@@ -1327,6 +1366,7 @@ def mh_phase(dev, K, counters):
 
         (ue, stats), launches, first_s, warm = timed_runs(run, counters)
         SHARED[f"{name} [dense] solver"] = solver
+        SHARED[name] = (ebdyc, f, bc)
         grid_err, rad_err = max_err(ebdyc, ue, mh_sol)
         err = max(grid_err, rad_err)
         iters = stats["annular_iterations"][0]
@@ -1992,7 +2032,21 @@ def tier2_interface_phase(dev):
 # phase 7: solver_type="fourth", the periodic evaluator, the example scripts
 # ---------------------------------------------------------------------------
 
-def fourth_run(label, setup_s, run, check, counters, kname, held, beside):
+def setup_reference(ebdyc):
+    """The setup backend that auto_backend gives every boundary of
+    ``ebdyc`` (and so its solver's QFS maps and its BIE) on the card: the
+    key of ipde_tpu's reference values for that backend.  Raises when the
+    boundaries straddle qfs.DEVICE_MIN: no reference mixes the two."""
+    from ipde_tpu_torch.qfs.qfs import auto_backend
+    got = {auto_backend(e.bdy.N, ebdyc.device) for e in ebdyc}
+    if len(got) != 1:
+        raise RuntimeError(f"boundaries of {[e.bdy.N for e in ebdyc]} "
+                           "points take both setup backends")
+    return got.pop()
+
+
+def fourth_run(label, ebdyc, setup_s, run, check, counters, kname, held,
+               beside):
     """One fourth-order solve + apply_bc on a collection of an earlier
     phase: ``run()`` driven with every count set to 0 just before and read
     just after; its error from ``check`` must be within 1% of ipde_tpu's
@@ -2003,12 +2057,14 @@ def fourth_run(label, setup_s, run, check, counters, kname, held, beside):
     kernel, max abs difference from the plain version)."""
     (out, stats), launches, first_s, warm = timed_runs(run, counters)
     err, text = check(out)
-    ref = IPDE_TPU_FOURTH_CPU[label]
+    backend = setup_reference(ebdyc)
+    ref = IPDE_TPU_FOURTH_CPU[backend][label]
     gap = abs(err / ref - 1.0)
     resid = max(stats["annular_residuals"])
     print(f"# fourth {label} solve: GMRES iterations "
           f"{stats['annular_iterations']}, max residual {resid:.3e}, {text} "
-          f"(ipde_tpu on the CPU {ref:.10e}, ratio {err / ref:.7f}, "
+          f"(ipde_tpu on the CPU, {backend} setup, {ref:.10e}, ratio "
+          f"{err / ref:.7f}, "
           f"|err - ipde_tpu| {abs(err - ref):.3e}; limits |ratio - 1| <= "
           f"{TOL_FOURTH_REL} and err < {TOL_FOURTH[label]:g}); {beside}; "
           f"launches {launches}", flush=True)
@@ -2057,7 +2113,7 @@ def fourth_phase(K, SK, counters):
                            f"radial {r:.3e})")
 
     got, errs["laplace_slp"] = fourth_run(
-        "poisson", setup_s, poisson_run, poisson_check, counters,
+        "poisson", ebdyc, setup_s, poisson_run, poisson_check, counters,
         "laplace_slp",
         (K, "laplace_slp_apply", K.laplace_slp_apply_plain, laplace_err,
          lambda sx, sy, w, tx, ty: bound_ms("laplace_slp", sx.shape[0],
@@ -2090,7 +2146,7 @@ def fourth_phase(K, SK, counters):
                      f"radial {radial})")
 
     got, errs["stokes_slp"] = fourth_run(
-        "stokes_3body", setup_s, stokes_run, stokes_check, counters,
+        "stokes_3body", ebdyc, setup_s, stokes_run, stokes_check, counters,
         "stokes_slp",
         (SK, "stokes_slp_apply", SK.stokes_slp_apply_plain, stokes_err,
          lambda sx, sy, wfx, wfy, tx, ty: bound_ms(
@@ -2298,11 +2354,24 @@ def examples_phase(K, SK, counters):
                     "its run"))
         return out
 
+    def example_ref(key, *ns):
+        """ipde_tpu's value for the setup backend that boundaries of ``ns``
+        points take on the card (setup_reference), with its name."""
+        from ipde_tpu_torch.qfs.qfs import auto_backend
+        got = {auto_backend(n, torch.device("cuda", 0)) for n in ns}
+        if len(got) != 1:
+            raise RuntimeError(f"boundaries of {ns} points take both setup "
+                               "backends")
+        backend = got.pop()
+        return IPDE_TPU_EXAMPLES_CPU[backend][key], backend
+
     def hold(label, got, ref, ledger):
+        ref, backend = ref
         gap = abs(got / ref - 1.0)
-        print(f"# example {label}: err {got:.10e}, ipde_tpu on the CPU "
-              f"{ref:.10e} (relative difference {gap:.3e}, limit "
-              f"{TOL_EXAMPLE_REL}); LEDGER_TPU.json {ledger}", flush=True)
+        print(f"# example {label}: err {got:.10e}, ipde_tpu on the CPU, "
+              f"{backend} setup, {ref:.10e} (relative difference "
+              f"{gap:.3e}, limit {TOL_EXAMPLE_REL}); LEDGER_TPU.json "
+              f"{ledger}", flush=True)
         if not (math.isfinite(got) and gap <= TOL_EXAMPLE_REL):
             raise RuntimeError(f"example {label}: {got:.6e} is not within "
                                f"{TOL_EXAMPLE_REL} of ipde_tpu's {ref:.6e}")
@@ -2321,7 +2390,7 @@ def examples_phase(K, SK, counters):
     print(f"# example {label}: {times(row)}; rule err <= 3 x "
           f"{ex.REFERENCE_ERR[200]:.4e} "
           f"{'met' if ex.check(row) else 'NOT met'}", flush=True)
-    hold(label, row["err"], IPDE_TPU_EXAMPLES_CPU["poisson_refinement"],
+    hold(label, row["err"], example_ref("poisson_refinement", 200),
          f"poisson_refinement@cpu {old}")
     if not row["beats_reference"] or launches["laplace_slp"] <= 0:
         raise RuntimeError(f"{label} misses its rule or launched no "
@@ -2337,7 +2406,7 @@ def examples_phase(K, SK, counters):
           f"coarse row alone "
           f"{'meets' if row['err'] <= 3 * ex.REFERENCE_ERR[1.0] else 'does not meet'} "
           f"it (the full sweep: PERF.md section 5)", flush=True)
-    hold(label, row["err"], IPDE_TPU_EXAMPLES_CPU["mh_neumann_refinement"],
+    hold(label, row["err"], example_ref("mh_neumann_refinement", 200),
          f"mh_neumann_refinement (cpu block) {old}")
     if launches["mh_slp"] <= before:
         raise RuntimeError(f"{label} launched no mh_slp")
@@ -2351,7 +2420,7 @@ def examples_phase(K, SK, counters):
           f"{ex.REFERENCE_ERR[100]:.4e} {'met' if ok else 'NOT met'}",
           flush=True)
     hold(f"{label} (ipde_tpu with the port's BIE radial plans)", row["err"],
-         IPDE_TPU_EXAMPLES_CPU["stokes_refinement"],
+         example_ref("stokes_refinement", 100, 64),
          f"stokes_refinement@cpu (ipde_tpu's own plans) {old}")
     if not ok or launches["stokes_slp"] <= 0:
         raise RuntimeError(f"{label} misses its rule or launched no "
@@ -2369,7 +2438,7 @@ def examples_phase(K, SK, counters):
         print(f"# example {label} (dt 0.1, 2 steps, nb 200, M 10): "
               f"{step_s:.3f} s per step", flush=True)
         hold(label, err,
-             IPDE_TPU_EXAMPLES_CPU[f"advection_convergence_{scheme}"],
+             example_ref(f"advection_convergence_{scheme}", 200),
              f"advection_convergence (cpu block, nb 200, M 10, T 0.2) "
              f"{adv['err_' + scheme]:.4e}")
 
@@ -2724,6 +2793,221 @@ def mesh_phase(K, SK, counters):
     return launches, errs
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the two setup backends
+# ---------------------------------------------------------------------------
+
+def setup_forms(kind, solver, k=None):
+    """(name, device form, host form) of every builder of
+    ops/forms_dev.py that ``kind``'s setup uses, at the production shapes of
+    the solver's first helper: the sources of its grid-side QFS onto its
+    interface (with the interface normals), the interface itself for the
+    self forms."""
+    from ipde_tpu_torch.ops import forms_dev as fd
+    from ipde_tpu_torch.ops import singular as sq
+    from ipde_tpu_torch.ops import stokes_kernels as sk
+    h = solver.helpers[0]
+    src, ifc, dev = h.grid_source, h.ebdy.interface, solver.device
+    naive = (src, ifc.x, ifc.y)
+    normal = (*naive, ifc.normal_x, ifc.normal_y)
+    if kind == "laplace":
+        cases = [("laplace_slp_naive", sq, naive),
+                 ("laplace_dlp_naive", sq, naive),
+                 ("laplace_slp_normal_naive", sq, normal),
+                 ("laplace_slp_self", sq, (ifc,)),
+                 ("laplace_dlp_self", sq, (ifc,)),
+                 ("laplace_slp_normal_self", sq, (ifc,))]
+    elif kind == "stokes":
+        cases = [("stokes_slp_naive", sk, naive),
+                 ("stokes_dlp_naive", sk, naive),
+                 ("stokes_pressure_fix", sk, (src, ifc.normal_x,
+                                              ifc.normal_y)),
+                 ("stokes_slp_self", sk, (ifc,)),
+                 ("stokes_dlp_self", sk, (ifc,))]
+    else:
+        cases = [("mh_slp_naive", sq, (*naive, k)),
+                 ("mh_dlp_naive", sq, (*naive, k)),
+                 ("mh_slp_normal_naive", sq, (*normal, k))]
+    return [(name, getattr(fd, name + "_dev")(*args, device=dev),
+             getattr(mod, name)(*args)) for name, mod, args in cases]
+
+
+def qfs_system(kind, helper, k=None):
+    """(host forms, host A) of the helper's grid-side QFS (interior
+    evaluation: the DLP jump -1/2), as its constructor forms them."""
+    from ipde_tpu_torch.ops import singular as sq
+    from ipde_tpu_torch.ops import stokes_kernels as sk
+    ifc, src = helper.ebdy.interface, helper.grid_source
+    if kind == "stokes":
+        eye = np.eye(2 * ifc.N)
+        return ([sk.stokes_slp_self(ifc), sk.stokes_dlp_self(ifc) - 0.5 * eye],
+                sk.stokes_slp_naive(src, ifc.x, ifc.y)
+                + sk.stokes_pressure_fix(src, ifc.normal_x, ifc.normal_y))
+    if kind == "laplace":
+        return ([sq.laplace_slp_self(ifc),
+                 sq.laplace_dlp_self(ifc) - 0.5 * np.eye(ifc.N)],
+                sq.laplace_slp_naive(src, ifc.x, ifc.y))
+    return ([sq.mh_slp_self(ifc, k),
+             sq.mh_dlp_self(ifc, k) - 0.5 * np.eye(ifc.N)],
+            sq.mh_slp_naive(src, ifc.x, ifc.y, k))
+
+
+def map_residual(q, forms, A):
+    """max over the maps of ||A M - F B|| / ||F B|| (Frobenius) of a QFS
+    evaluator built from ``forms`` and ``A``, its maps M upsampled to the
+    source curve where the device backend compressed them."""
+    from ipde_tpu_torch.qfs.qfs import _filter_rows
+    A = torch.as_tensor(A, device=q.mats[0].device)
+    worst = 0.0
+    for M, B in zip(q.mats, forms):
+        FB = torch.as_tensor(_filter_rows(B, q.curve.N), device=A.device)
+        worst = max(worst, float(torch.linalg.norm(A @ q._upsample(M) - FB)
+                                 / torch.linalg.norm(FB)))
+    return worst
+
+
+def setup_problems():
+    """The problems of phase 9: (label, form kind, Yukawa k, make(ebdyc) ->
+    (solver, bie), ebdyc, forcing, boundary data, errors(output) -> {name:
+    (error, limit)})."""
+    from ipde_tpu_torch.solvers.bie import (DirichletBIE, NeumannBIE,
+                                            StokesDirichletBIE)
+    from ipde_tpu_torch.solvers.scalar import (ModifiedHelmholtzSolver,
+                                               PoissonSolver)
+    from ipde_tpu_torch.solvers.vector import StokesSolver
+
+    def scalar_err(ebdyc, fn, limit):
+        return lambda ue: {"error": (max(max_err(ebdyc, ue, fn)), limit)}
+
+    def stokes_errs(ebdyc):
+        def errs(out):
+            u, v, p = out
+            shift = float((p.grid.cpu().numpy() - psol(ebdyc.grid.xg,
+                                                       ebdyc.grid.yg))
+                          [ebdyc.phys].mean())
+            return {"velocity": (max(max(max_err(ebdyc, u, usol)),
+                                     max(max_err(ebdyc, v, vsol))),
+                                 TOL_STOKES_VEL),
+                    "pressure": (max(max_err(ebdyc, p, psol, shift)),
+                                 TOL_STOKES_P)}
+        return errs
+
+    pois, f, bc = SHARED["poisson"]
+    sto, fs, bcs = SHARED["stokes_tier1"]
+    mh2, f2, bc2 = SHARED["mh_dirichlet_k2"]
+    k, nb, M, limit = SETUP_NEUMANN
+    neu, _, fn, bcn, _, _ = build_mh_problem(None, k, nb, M, "neumann")
+
+    def scalar(cls, bie_cls, **kw):
+        return lambda e: (lambda s: (s, bie_cls(s)))(cls(e, **kw))
+
+    return [
+        ("poisson_nb1200", "laplace", None,
+         scalar(PoissonSolver, DirichletBIE), pois, f, bc,
+         scalar_err(pois, sol, TOL_SOLVE_ERR)),
+        ("stokes_tier1", "stokes", None,
+         lambda e: (lambda s: (s, StokesDirichletBIE(s)))(StokesSolver(e)),
+         sto, fs, bcs, stokes_errs(sto)),
+        ("mh_dirichlet_k2", "mh", 2.0,
+         scalar(ModifiedHelmholtzSolver, DirichletBIE, k=2.0), mh2, f2, bc2,
+         scalar_err(mh2, mh_sol, MH_CASES[0][5])),
+        (f"mh_neumann_k2_nb{nb}", "mh", k,
+         scalar(ModifiedHelmholtzSolver, NeumannBIE, k=k), neu, fn, bcn,
+         scalar_err(neu, mh_sol, limit))]
+
+
+def solution_gap(ebdyc, a, b):
+    """max |a - b| over the fields of two solve outputs on the physical grid
+    points and the radial grids; a Stokes pressure (the third of three,
+    defined up to a constant) after the mean of its difference over the
+    physical points."""
+    if not isinstance(a, tuple):
+        a, b = (a,), (b,)
+    phys = torch.as_tensor(ebdyc.phys, device=a[0].grid.device)
+    gap = 0.0
+    for i, (x, y) in enumerate(zip(a, b)):
+        shift = float((x.grid - y.grid)[phys].mean()) if i == 2 else 0.0
+        gap = max(gap, float((x.grid - y.grid - shift)[phys].abs().max()),
+                  *(float((rx - ry - shift).abs().max())
+                    for rx, ry in zip(x.radials, y.radials)))
+    return gap
+
+
+def setup_phase(K, SK, counters):
+    """Phase 9 (see the module docstring); returns (the device-backend
+    solves' launches by kernel, max abs difference from the plain version
+    by kernel)."""
+    from tools.torch_profile_setup import fmt, instrumented, one_setup
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(f"# setup backends on {smi.stdout.strip().splitlines()[0]}",
+          flush=True)
+    holds = kernel_holds(K, SK)
+    launches = {name: 0 for name in counters}
+    errs = {name: 0.0 for name in counters}
+    for label, kind, k, make, ebdyc, f, bcs, errors in setup_problems():
+        built = {}
+        for backend in ("host", "device"):
+            with instrumented() as sec:
+                solver, bie, setup_s, own, peak, retries = one_setup(
+                    lambda: make(ebdyc), backend, sec)
+            forms, A = qfs_system(kind, solver.helpers[0], k)
+            resid = map_residual(solver.helpers[0].qfs_g, forms, A)
+            built[backend] = (solver, bie)
+            print(f"# setup {label} [{backend}]: {setup_s:.2f} s ("
+                  f"{fmt(own)}); peak device memory {peak:.3f} GiB; "
+                  f"grid-side QFS ||A M - F B|| / ||F B|| {resid:.3e}; "
+                  f"shifted retries {retries}", flush=True)
+        gaps = []
+        for name, got, want in setup_forms(kind, built["device"][0], k):
+            gap = float((got.cpu() - torch.as_tensor(want)).abs().max()
+                        / np.abs(want).max())
+            gaps.append(gap)
+            if not gap <= SETUP_FORM_TOL:
+                raise RuntimeError(f"setup {label}: the device {name} is "
+                                   f"{gap:.3e} from the host one")
+        print(f"# setup {label}: {len(gaps)} device forms within "
+              f"{max(gaps):.3e} of the host forms (relative to their max; "
+              f"tol {SETUP_FORM_TOL:.0e})", flush=True)
+        outs = {}
+        for backend in ("host", "device"):
+            run = solve_run(*built[backend], f, bcs)
+            if backend == "device":
+                for c in counters.values():
+                    c.launches = 0
+                (out, _), calls = record_all_launch_args(run, holds)
+                got = {name: c.launches for name, c in counters.items()}
+            else:
+                out, _ = run()
+            outs[backend] = out
+            e = errors(out)
+            print(f"# setup {label} [{backend}] solve: " + ", ".join(
+                f"{n} {v:.4e} (limit {lim:.4g})" for n, (v, lim) in
+                e.items()), flush=True)
+            if not all(math.isfinite(v) and v < lim for v, lim in e.values()):
+                raise RuntimeError(f"setup {label} [{backend}]: a solve "
+                                   "error misses its limit")
+        print(f"# setup {label}: max |device - host backend solution| "
+              f"{solution_gap(ebdyc, outs['device'], outs['host']):.3e}; "
+              f"device-backend solve launches {got}", flush=True)
+        if not sum(got.values()) > 0:
+            raise RuntimeError(f"setup {label}: no kernel launched")
+        for name, c in calls.items():
+            if len(c) != got[name]:
+                raise RuntimeError(f"setup {label}: {len(c)} {name} "
+                                   f"launches recorded, {got[name]} counted")
+            launches[name] += got[name]
+            if c:
+                module, attr, plain, err, bound_of = holds[name]
+                errs[name] = max(errs[name], hold_calls(
+                    f"setup {label}", c, getattr(module, attr), plain, err,
+                    bound_of, "one device-backend solve + apply_bc"))
+    print(f"# phase 9 {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launches, errs
+
+
 def main():
     t_start = time.perf_counter()
     # ---- phase 1: device, card, build ------------------------------------
@@ -2776,11 +3060,16 @@ def main():
     for name, n in mesh_launches.items():
         launches[name] += n
         errs[name] = max(errs[name], mesh_errs[name])
+    # ---- phase 9: the two setup backends ------------------------------------
+    setup_launches, setup_errs = setup_phase(K, SK, counters)
+    for name, n in setup_launches.items():
+        launches[name] += n
+        errs[name] = max(errs[name], setup_errs[name])
     for entry in kernels:
         entry["launches"] += launches[entry["name"]]
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[entry["name"]])
 
-    # ---- phase 9: results --------------------------------------------------
+    # ---- phase 10: results -------------------------------------------------
     print(f"# total {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -57,7 +57,8 @@ class BoundaryCurve:
     # -- device mirrors --------------------------------------------------------
     def dev(self, device) -> dict:
         """float64 torch mirrors, on ``device``, of the arrays the layer
-        potential kernels consume; cached per device."""
+        potential kernels and the device-built forms (ops/forms_dev.py)
+        consume; cached per device."""
         import torch
         device = torch.device(device)
         cache = self.__dict__.setdefault("_dev", {})
@@ -65,7 +66,9 @@ class BoundaryCurve:
         if d is None:
             d = {name: torch.as_tensor(getattr(self, name), dtype=torch.float64,
                                        device=device).contiguous()
-                 for name in ("x", "y", "weights", "normal_x", "normal_y")}
+                 for name in ("x", "y", "weights", "normal_x", "normal_y",
+                              "tangent_x", "tangent_y", "speed", "curvature",
+                              "t")}
             cache[device] = d
         return d
 

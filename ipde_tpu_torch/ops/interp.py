@@ -354,7 +354,14 @@ class ExactInterp2D:
     u(t) = Re sum_{kx} e^{i kx tx} sum_{ky} e^{i ky ty} c[kx, ky] / (nx ny)
     with the (T, ny) and (T, nx) phase matrices precomputed on the host (the
     same cos/sin values as ipde_tpu) and kept on ``device`` in complex128.
+    Many fields go through in chunks whose (T, B nx) complex temporaries
+    stay under ``max_temp_bytes`` (ipde_tpu's memory guard ignores the
+    number of fields).
     """
+
+    #: bytes the (T, B nx) complex128 temporaries of one chunk of B fields
+    #: may take (at least one field per chunk)
+    max_temp_bytes = 1 << 29
 
     def __init__(self, nx: int, ny: int, tx, ty, x_offset: float = 0.0,
                  y_offset: float = 0.0, *, device):
@@ -379,17 +386,22 @@ class ExactInterp2D:
         self.iky = torch.as_tensor(1j * kyn, dtype=torch.complex128,
                                    device=device)
 
-    def _cols(self, c):
-        """(B, nx, ny) modes -> (ny, B*nx) with per-field column groups."""
-        B = c.shape[0]
-        return c.permute(2, 0, 1).reshape(self.ny, B * self.nx), B
+    def _chunks(self, c):
+        """(B, nx, ny) modes -> [(ny, b nx) column blocks, one per chunk of
+        b fields], each with per-field column groups."""
+        step = max(1, self.max_temp_bytes // (16 * self.T * self.nx))
+        return [part.permute(2, 0, 1).reshape(self.ny, -1)
+                for part in torch.split(c, step)]
+
+    def _sum_x(self, g, EX):
+        """Re sum_x g[t, b, x] EX[t, x] -> (b, T); g (T, b nx)."""
+        g = g.reshape(self.T, -1, self.nx)
+        return torch.einsum("tbx,tx->bt", g, EX).real
 
     def _many_from_modes(self, c):
         """(B, nx, ny) complex modes -> (B, T) real values."""
-        C, B = self._cols(c)
-        g = (self.EY @ C).reshape(self.T, B, self.nx)
-        out = torch.einsum("tbx,tx->bt", g, self.EX).real
-        return out / (self.nx * self.ny)
+        return torch.cat([self._sum_x(self.EY @ C, self.EX)
+                          for C in self._chunks(c)]) / (self.nx * self.ny)
 
     def from_modes(self, c):
         """c: (nx, ny) or (B, nx, ny) unnormalized fft2 modes."""
@@ -402,13 +414,15 @@ class ExactInterp2D:
         trigonometric differentiation (the ik factors fold into the phase
         matrices)."""
         batched = c.dim() == 3
-        C, B = self._cols(c if batched else c[None])
-        g = (self.EY @ C).reshape(self.T, B, self.nx)
-        dg = ((self.EY * self.iky) @ C).reshape(self.T, B, self.nx)
+        parts = []
+        for C in self._chunks(c if batched else c[None]):
+            g = self.EY @ C
+            dg = (self.EY * self.iky) @ C
+            parts.append((self._sum_x(g, self.EX),
+                          self._sum_x(g, self.EX * self.ikx),
+                          self._sum_x(dg, self.EX)))
         norm = 1.0 / (self.nx * self.ny)
-        val = torch.einsum("tbx,tx->bt", g, self.EX).real * norm
-        ddx = torch.einsum("tbx,tx->bt", g, self.EX * self.ikx).real * norm
-        ddy = torch.einsum("tbx,tx->bt", dg, self.EX).real * norm
+        val, ddx, ddy = (torch.cat(p) * norm for p in zip(*parts))
         if batched:
             return val, ddx, ddy
         return val[0], ddx[0], ddy[0]

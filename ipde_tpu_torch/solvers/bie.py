@@ -3,7 +3,9 @@
 After the inhomogeneous solve, the PDE residual is a homogeneous solution
 determined by a dense BIE on the true boundaries (reference: done in the
 example drivers, e.g. examples/interior_poisson.py:84-92).  The BIE matrix is
-assembled and inverted on the host at setup; the solve-time path is matmuls,
+assembled and inverted at setup, on the host (LAPACK) or on the device
+(forms from ops/forms_dev.py, torch.linalg.inv, one refinement pass per
+solve), as ``_bie_backend`` picks; the solve-time path is matmuls,
 the field on the grid (the solver's FFT evaluator over the BIE's own QFS
 sources with ``grid_backend="fft"``, the CUDA kernel at every physical point
 with ``"dense"``) and dense layer evaluations onto the radial grids in the
@@ -20,14 +22,18 @@ derivative from the physical side.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
+from ipde_tpu_torch.ops import forms_dev as fd
 from ipde_tpu_torch.ops import kernels
 from ipde_tpu_torch.ops import singular as sq
 from ipde_tpu_torch.ops import stokes_kernels as sk
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
+from ipde_tpu_torch.qfs.qfs import auto_backend
 from ipde_tpu_torch.solvers.scalar import ModifiedHelmholtzSolver, ScalarSolver
 from ipde_tpu_torch.solvers.vector import StokesSolver, stokes_qfs
 
@@ -52,14 +58,42 @@ def _radial_plans(src_list, ebdyc, dev):
             for e in ebdyc]
 
 
-def _invert_system(blocks, offs) -> np.ndarray:
-    """Assemble the block BIE matrix on the host and invert it (LAPACK)."""
+def _bie_backend(n: int, device) -> str:
+    """The BIE build backend: ``IPDE_BIE_BACKEND=host|device`` overrides,
+    else ``qfs.auto_backend(n, device)`` (n: the smallest boundary)."""
+    env = os.environ.get("IPDE_BIE_BACKEND")
+    if env:
+        if env not in ("host", "device"):
+            raise ValueError(f"IPDE_BIE_BACKEND={env!r}: host or device")
+        return env
+    return auto_backend(n, device)
+
+
+def _invert_system(blocks, offs, backend: str, device):
+    """Assemble the block BIE matrix and invert it: (A_dev, Ainv) on
+    ``device``.  backend "device": the blocks are tensors on ``device``,
+    assembled there and inverted by torch.linalg.inv (LU with partial
+    pivoting; cuSOLVER on a card); A_dev is kept for ``_solve_bie``'s
+    refinement pass.  backend "host": numpy blocks, a LAPACK inverse
+    uploaded, A_dev None."""
+    if backend == "device":
+        A = torch.cat([torch.cat(list(row), dim=1) for row in blocks], dim=0)
+        return A, torch.linalg.inv(A)
     n = offs[-1]
     A = np.zeros((n, n))
     for i, row in enumerate(blocks):
         for j, b in enumerate(row):
             A[offs[i]:offs[i + 1], offs[j]:offs[j + 1]] = np.asarray(b)
-    return np.linalg.inv(A)
+    return None, torch.as_tensor(np.linalg.inv(A), device=device)
+
+
+def _solve_bie(A_dev, Ainv, rhs):
+    """A^{-1} rhs, with ipde_tpu's one refinement pass wherever A_dev is
+    kept (the device backend)."""
+    tau = Ainv @ rhs
+    if A_dev is not None:
+        tau = tau + Ainv @ (rhs - A_dev @ tau)
+    return tau
 
 
 class _ScalarBIE:
@@ -138,8 +172,11 @@ class DirichletBIE(_ScalarBIE):
         dev = ebdyc.device
         Ns = [e.bdy.N for e in ebdyc]
         offs = np.concatenate([[0], np.cumsum(Ns)])
-        blocks = [[self._dlp_block(ei, ej) for ej in ebdyc] for ei in ebdyc]
-        self.Ainv = torch.as_tensor(_invert_system(blocks, offs), device=dev)
+        backend = _bie_backend(min(Ns), dev)
+        builders = fd.FormBuilders(backend, dev)
+        blocks = [[self._dlp_block(ei, ej, builders) for ej in ebdyc]
+                  for ei in ebdyc]
+        self.A_dev, self.Ainv = _invert_system(blocks, offs, backend, dev)
         self.offs = offs
         # per-boundary QFS of the DLP, matched from the physical side,
         # effective sources on the far side of the physical region
@@ -153,29 +190,34 @@ class DirichletBIE(_ScalarBIE):
                 solver._make_qfs(e.bdy, src, e.interior, build_u2s=False))
         self._make_targets(ebdyc, dev)
 
-    def _dlp_block(self, ei, ej):
+    def _dlp_block(self, ei, ej, b: fd.FormBuilders):
         """Representation: interior boundary -> DLP[tau]; inclusion
         (exterior) boundary -> (DLP + SLP)[tau].  The Laplace exterior DLP
         alone is rank-deficient (DLP of a constant density vanishes outside
         a closed curve); adding the SLP of the SAME density restores full
         rank consistently -- the evaluation uses the identical combination.
-        The Yukawa DLP is complete for inclusions: no SLP added there."""
+        The Yukawa DLP is complete for inclusions: no SLP added there.
+
+        ``b``: the backend's form builders; the Yukawa self block is
+        host-built on either backend (uploaded for "device", as in
+        ipde_tpu)."""
         solver = self.solver
         is_mh = isinstance(solver, ModifiedHelmholtzSolver)
+        bi, bj = ei.bdy, ej.bdy
         if ei is ej:
             if is_mh:
-                D = sq.mh_dlp_self(ej.bdy, solver.k)
+                D = b.lift(sq.mh_dlp_self(bj, solver.k))
             else:
-                D = sq.laplace_dlp_self(ej.bdy)
+                D = b.form("laplace_dlp_self")(bj)
                 if not ej.interior:
-                    D = D + sq.laplace_slp_self(ej.bdy)
+                    D = D + b.form("laplace_slp_self")(bj)
             jump = -0.5 if ej.interior else 0.5
-            return D + jump * np.eye(ej.bdy.N)
+            return D + jump * b.eye(bj.N)
         if is_mh:
-            return sq.mh_dlp_naive(ej.bdy, ei.bdy.x, ei.bdy.y, solver.k)
-        D = sq.laplace_dlp_naive(ej.bdy, ei.bdy.x, ei.bdy.y)
+            return b.form("mh_dlp_naive")(bj, bi.x, bi.y, solver.k)
+        D = b.form("laplace_dlp_naive")(bj, bi.x, bi.y)
         if not ej.interior:
-            D = D + sq.laplace_slp_naive(ej.bdy, ei.bdy.x, ei.bdy.y)
+            D = D + b.form("laplace_slp_naive")(bj, bi.x, bi.y)
         return D
 
     def apply_bc(self, ue: EmbeddedFunction,
@@ -184,7 +226,7 @@ class DirichletBIE(_ScalarBIE):
         solver = self.solver
         bvs = solver.get_boundary_values(ue)
         rhs = torch.cat([b - v for b, v in zip(bc.values, bvs.values)])
-        tau = self.Ainv @ rhs
+        tau = _solve_bie(self.A_dev, self.Ainv, rhs)
         taus = [tau[self.offs[i]:self.offs[i + 1]]
                 for i in range(len(self.ebdyc.ebdys))]
         # effective sources; QFS forms are [slp, dlp].  Laplace inclusions
@@ -217,25 +259,28 @@ class NeumannBIE(_ScalarBIE):
         is_mh = isinstance(solver, ModifiedHelmholtzSolver)
         Ns = [e.bdy.N for e in ebdyc]
         offs = np.concatenate([[0], np.cumsum(Ns)])
+        backend = _bie_backend(min(Ns), dev)
+        b = fd.FormBuilders(backend, dev)
 
         def blk(ei, ej):
             bi, bj = ei.bdy, ej.bdy
             if ei is ej:
-                b = (sq.mh_slp_normal_self(bj, solver.k) if is_mh
-                     else sq.laplace_slp_normal_self(bj))
+                own = (b.lift(sq.mh_slp_normal_self(bj, solver.k)) if is_mh
+                       else b.form("laplace_slp_normal_self")(bj))
                 jump = 0.5 if ej.interior else -0.5
-                return b + jump * np.eye(bj.N)
+                return own + jump * b.eye(bj.N)
             if is_mh:
-                return sq.mh_slp_normal_naive(bj, bi.x, bi.y, bi.normal_x,
-                                              bi.normal_y, solver.k)
-            return sq.laplace_slp_normal_naive(bj, bi.x, bi.y, bi.normal_x,
-                                               bi.normal_y)
+                return b.form("mh_slp_normal_naive")(
+                    bj, bi.x, bi.y, bi.normal_x, bi.normal_y, solver.k)
+            return b.form("laplace_slp_normal_naive")(
+                bj, bi.x, bi.y, bi.normal_x, bi.normal_y)
 
         blocks = [[blk(ei, ej) for ej in ebdyc] for ei in ebdyc]
         if not is_mh and len(ebdyc.ebdys) == 1 and ebdyc.ebdys[0].interior:
             # pin the Laplace Neumann nullspace: add mean(sigma) to all rows
-            blocks[0][0] = blocks[0][0] + ebdyc.ebdys[0].bdy.weights[None, :]
-        self.Ainv = torch.as_tensor(_invert_system(blocks, offs), device=dev)
+            blocks[0][0] = blocks[0][0] + b.lift(
+                ebdyc.ebdys[0].bdy.weights[None, :])
+        self.A_dev, self.Ainv = _invert_system(blocks, offs, backend, dev)
         self.offs = offs
         self.qfs_list = []
         self.src_list = []
@@ -252,7 +297,7 @@ class NeumannBIE(_ScalarBIE):
         """Correct ue so that du/dn = bc_n on every boundary."""
         bns = self.solver.get_boundary_normal_derivatives(ue)
         rhs = torch.cat([b - v for b, v in zip(bc_n.values, bns.values)])
-        sig = self.Ainv @ rhs
+        sig = _solve_bie(self.A_dev, self.Ainv, rhs)
         xis = [q([sig[self.offs[i]:self.offs[i + 1]]])
                for i, q in enumerate(self.qfs_list)]
         return self._add_fields(ue, xis)
@@ -282,7 +327,8 @@ class StokesDirichletBIE:
     the interior boundary carries DLP[tau] with the normal-flux rank
     completion, an inclusion (SLP + DLP)[tau] of one density; the one-sided
     limits are taken from the physical side.  The blocks are built and
-    inverted on the host (2N rows per boundary); the QFS forms are DLP-only
+    inverted on the host or the device, as ``_bie_backend`` picks (2N rows
+    per boundary); the QFS forms are DLP-only
     for the interior boundary and [SLP, DLP] for an inclusion.
     """
 
@@ -291,27 +337,28 @@ class StokesDirichletBIE:
         ebdyc = solver.ebdyc
         self.ebdyc = ebdyc
         dev = ebdyc.device
+        backend = _bie_backend(min(e.bdy.N for e in ebdyc), dev)
+        b = fd.FormBuilders(backend, dev)
+        dlp_self, slp_self, fix, dlp, slp = (b.form(name) for name in (
+            "stokes_dlp_self", "stokes_slp_self", "stokes_pressure_fix",
+            "stokes_dlp_naive", "stokes_slp_naive"))
 
         def blk(ei, ej):
             bi, bj = ei.bdy, ej.bdy
             if ei is ej:
                 if ej.interior:
-                    return (sk.stokes_dlp_self(bj) - 0.5 * np.eye(2 * bj.N)
-                            + sk.stokes_pressure_fix(bj, bj.normal_x,
-                                                     bj.normal_y))
-                return (sk.stokes_dlp_self(bj) + sk.stokes_slp_self(bj)
-                        + 0.5 * np.eye(2 * bj.N))
+                    return (dlp_self(bj) - 0.5 * b.eye(2 * bj.N)
+                            + fix(bj, bj.normal_x, bj.normal_y))
+                return dlp_self(bj) + slp_self(bj) + 0.5 * b.eye(2 * bj.N)
             if ej.interior:
-                return (sk.stokes_dlp_naive(bj, bi.x, bi.y)
-                        + sk.stokes_pressure_fix(bj, bi.normal_x,
-                                                 bi.normal_y))
-            return (sk.stokes_dlp_naive(bj, bi.x, bi.y)
-                    + sk.stokes_slp_naive(bj, bi.x, bi.y))
+                return (dlp(bj, bi.x, bi.y)
+                        + fix(bj, bi.normal_x, bi.normal_y))
+            return dlp(bj, bi.x, bi.y) + slp(bj, bi.x, bi.y)
 
         offs = np.concatenate([[0], np.cumsum([2 * e.bdy.N
                                                for e in ebdyc])])
         blocks = [[blk(ei, ej) for ej in ebdyc] for ei in ebdyc]
-        self.Ainv = torch.as_tensor(_invert_system(blocks, offs), device=dev)
+        self.A_dev, self.Ainv = _invert_system(blocks, offs, backend, dev)
         self.offs = offs
         # per-boundary QFS, matched from the physical side
         self.src_list = [e.qfs_source_for_side("bdy", interior_eval=e.interior)
@@ -342,7 +389,7 @@ class StokesDirichletBIE:
         bv = solver.get_boundary_values(v)
         rhs = torch.cat([torch.cat([cu - gu, cv - gv]) for cu, cv, gu, gv in
                          zip(bc_u.values, bc_v.values, bu.values, bv.values)])
-        tau = self.Ainv @ rhs
+        tau = _solve_bie(self.A_dev, self.Ainv, rhs)
         sigmas = []
         for i, (e, q) in enumerate(zip(ebdyc, self.qfs_list)):
             t = tau[self.offs[i]:self.offs[i + 1]]

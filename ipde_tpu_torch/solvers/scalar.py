@@ -50,7 +50,7 @@ from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
 from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
                                                 add_flat)
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
-from ipde_tpu_torch.ops import kernels, singular as sq
+from ipde_tpu_torch.ops import forms_dev, kernels, singular as sq
 from ipde_tpu_torch.ops.fd import fd_x_4, fd_y_4
 from ipde_tpu_torch.ops.grid_eval import FreespaceGridEvaluator
 from ipde_tpu_torch.ops.interp import PolyInterpolator2D
@@ -58,7 +58,8 @@ from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 from ipde_tpu_torch.parallel.sharded import (Mesh, check_lead,
                                              sharded_laplace_slp_apply,
                                              sharded_mh_slp_apply)
-from ipde_tpu_torch.qfs.qfs import QFSEvaluator, laplace_qfs, mh_qfs
+from ipde_tpu_torch.qfs.qfs import (QFSEvaluator, auto_backend, laplace_qfs,
+                                   mh_qfs)
 from ipde_tpu_torch.solvers.annular_scalar import (
     AnnularModifiedHelmholtzSolver, AnnularPoissonSolver,
     batched_annular_solve)
@@ -105,8 +106,7 @@ class _ScalarHelper:
                                       build_u2s=False)
         self.qfs_r = solver._make_qfs(ifc, self.radial_source,
                                       not self.interior)
-        # own grid-source -> own interface dense matrix (for 'correct'),
-        # formed on the host and uploaded
+        # own grid-source -> own interface dense matrix (for 'correct')
         self.own_src_to_ifc = solver._naive_form_dev(self.grid_source,
                                                      ifc.x, ifc.y)
         f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64),  # noqa: E731
@@ -301,9 +301,16 @@ class ScalarSolver:
         raise NotImplementedError
 
     def _naive_form_dev(self, src, tx, ty):
-        """The host naive form, uploaded to the solver's device."""
+        """The naive form on the solver's device: formed there
+        (``_naive_form_device``) when ``auto_backend`` picks the device for
+        the number of targets, else formed on the host and uploaded."""
+        if auto_backend(np.size(tx), self.device) == "device":
+            return self._naive_form_device(src, tx, ty)
         return torch.as_tensor(self._naive_form(src, tx, ty),
                                device=self.device)
+
+    def _naive_form_device(self, src, tx, ty):
+        raise NotImplementedError
 
     def _apply(self, src_curve, density, tx, ty):
         raise NotImplementedError
@@ -456,6 +463,9 @@ class PoissonSolver(ScalarSolver):
     def _naive_form(self, src, tx, ty):
         return sq.laplace_slp_naive(src, tx, ty)
 
+    def _naive_form_device(self, src, tx, ty):
+        return forms_dev.laplace_slp_naive_dev(src, tx, ty, device=self.device)
+
     def _apply(self, src_curve, density, tx, ty):
         d = src_curve.dev(self.device)
         return sharded_laplace_slp_apply(self._shards, d["x"], d["y"],
@@ -520,6 +530,10 @@ class ModifiedHelmholtzSolver(ScalarSolver):
 
     def _naive_form(self, src, tx, ty):
         return sq.mh_slp_naive(src, tx, ty, self.k)
+
+    def _naive_form_device(self, src, tx, ty):
+        return forms_dev.mh_slp_naive_dev(src, tx, ty, self.k,
+                                          device=self.device)
 
     def _apply(self, src_curve, density, tx, ty):
         d = src_curve.dev(self.device)

@@ -29,8 +29,9 @@ ipde_tpu.solvers.vector:
 
 Ported: one interior boundary plus any number of inclusions
 (``interior=False``), both grid backends, ``helpers=`` reuse, both
-solver types and ``use_mesh`` (step 4's kernel apply target-sharded over a
-mesh, step 3's lockstep GMRES split along its boundary axis).
+solver types, ``use_mesh`` (step 4's kernel apply target-sharded over a
+mesh, step 3's lockstep GMRES split along its boundary axis) and both
+setup backends of the QFS maps (``stokes_qfs``; qfs/qfs.py).
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
 from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
                                                 add_flat)
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
+from ipde_tpu_torch.ops import forms_dev as fd
 from ipde_tpu_torch.ops import stokes_kernels as sk
 from ipde_tpu_torch.ops.fd import fd_x_4, fd_y_4
 from ipde_tpu_torch.ops.fourier import FourierPlan1D
@@ -53,31 +55,36 @@ from ipde_tpu_torch.ops.interp import PolyInterpolator2D
 from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 from ipde_tpu_torch.parallel.sharded import (Mesh, check_lead,
                                              sharded_stokes_slp_apply)
-from ipde_tpu_torch.qfs.qfs import QFSEvaluator
+from ipde_tpu_torch.qfs.qfs import QFSEvaluator, auto_backend
 from ipde_tpu_torch.solvers.annular_stokes import (AnnularStokesSolver,
                                                    batched_stokes_solve)
 
 
 def stokes_qfs(curve, source, interior: bool, slp: bool = True,
                dlp: bool = True, rcond: float = 1e-15,
-               build_u2s: bool = True, *, device) -> QFSEvaluator:
-    """QFS maps for the Stokes velocity layer potentials (2-vector packed),
-    composed on the host.
+               build_u2s: bool = True, backend: str = None, *,
+               device) -> QFSEvaluator:
+    """QFS maps for the Stokes velocity layer potentials (2-vector packed);
+    backend None: ``auto_backend(curve.N, device)``.
 
     The source-to-curve matrix carries the rank-1 normal-flux completion
     (reference: Fixed_SLP in examples/multi_stokes_for_paper.py) so the
     least-squares match is well posed; matched data is incompressible, so
     the completion component of the solution vanishes."""
+    backend = backend or auto_backend(curve.N, device)
+    b = fd.FormBuilders(backend, device)
     jump = -0.5 if interior else 0.5
     forms = []
     if slp:
-        forms.append(sk.stokes_slp_self(curve))
+        forms.append(b.form("stokes_slp_self")(curve))
     if dlp:
-        forms.append(sk.stokes_dlp_self(curve) + jump * np.eye(2 * curve.N))
-    A = (sk.stokes_slp_naive(source, curve.x, curve.y)
-         + sk.stokes_pressure_fix(source, curve.normal_x, curve.normal_y))
-    return QFSEvaluator(source, curve, forms, A, rcond,
-                        build_u2s=build_u2s, device=device)
+        forms.append(b.form("stokes_dlp_self")(curve)
+                     + jump * b.eye(2 * curve.N))
+    A = (b.form("stokes_slp_naive")(source, curve.x, curve.y)
+         + b.form("stokes_pressure_fix")(source, curve.normal_x,
+                                         curve.normal_y))
+    return QFSEvaluator(source, curve, forms, A, rcond, build_u2s=build_u2s,
+                        backend=backend, device=device)
 
 
 def _stokes_donor(prev_helper, ebdy):
@@ -118,8 +125,12 @@ class _StokesHelper:
                                         device=dev)
         # the one-boundary correction needs neither (the shortcut in
         # `correct`)
-        self.own_src_to_ifc = (f64(sk.stokes_slp_naive(
-            self.grid_source, ifc.x, ifc.y)) if multi else None)
+        self.own_src_to_ifc = None
+        if multi:
+            slp = fd.FormBuilders(auto_backend(ifc.N, dev), dev).form(
+                "stokes_slp_naive")
+            self.own_src_to_ifc = torch.as_tensor(
+                slp(self.grid_source, ifc.x, ifc.y), device=dev)
         # estimator rows + radial derivative machinery
         self.f_to_bdy = f64(ebdy.interp_f_to_bdy)
         self.f_to_ifc = f64(ebdy.interp_f_to_interface)

@@ -342,7 +342,10 @@ def test_stepper_checks_its_inputs(steps):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-def test_stepper_step_on_cuda_matches_cpu(steps):
+def test_stepper_step_on_cuda_matches_cpu(steps, monkeypatch):
+    # both runs on the host setup backend (the CPU's; the card's default,
+    # the device one, is held to the CPU in test_torch_device_setup.py)
+    monkeypatch.setenv("IPDE_QFS_BACKEND", "host")
     from ipde_tpu_torch.ops import kernels as K
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")

@@ -278,7 +278,10 @@ def _cuda():
 
 
 @pytest.mark.gpu
-def test_inclusion_poisson_on_cuda_matches_cpu(poisson2):
+def test_inclusion_poisson_on_cuda_matches_cpu(poisson2, monkeypatch):
+    # both runs on the host setup backend (the CPU's; the card's default,
+    # the device one, is held to the CPU in test_torch_device_setup.py)
+    monkeypatch.setenv("IPDE_QFS_BACKEND", "host")
     from ipde_tpu_torch.ops import kernels as K
     dev = _cuda()
     out = {}

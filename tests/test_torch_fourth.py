@@ -259,9 +259,12 @@ def test_fourth_stokes(stokes, backend):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-def test_fourth_poisson_on_cuda_matches_cpu(poisson2):
+def test_fourth_poisson_on_cuda_matches_cpu(poisson2, monkeypatch):
     """The fourth-order Poisson solve with an inclusion on the card against
     the CPU, with laplace_slp launches from the card's run."""
+    # both runs on the host setup backend (the CPU's; the card's default,
+    # the device one, is held to the CPU in test_torch_device_setup.py)
+    monkeypatch.setenv("IPDE_QFS_BACKEND", "host")
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
     from ipde_tpu_torch.ops import kernels as K

@@ -632,9 +632,12 @@ def test_cuda_kernel_carries_nan():
 
 
 @pytest.mark.gpu
-def test_mh_slice_on_cuda_matches_cpu():
+def test_mh_slice_on_cuda_matches_cpu(monkeypatch):
     """MH + DirichletBIE (k = 2) and + NeumannBIE (k = 20) on
     star(128, a=0.1, f=3), M=8, on the GPU and on the CPU."""
+    # both runs on the host setup backend (the CPU's; the card's default,
+    # the device one, is held to the CPU in test_torch_device_setup.py)
+    monkeypatch.setenv("IPDE_QFS_BACKEND", "host")
     dev = _cuda()
     for k, bie_cls in ((2.0, DirichletBIE), (20.0, NeumannBIE)):
         out = {}

@@ -245,9 +245,12 @@ def _cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("backend", ["dense", "fft"])
-def test_three_body_mh_on_cuda_matches_cpu(mh3, backend):
+def test_three_body_mh_on_cuda_matches_cpu(mh3, backend, monkeypatch):
     """The three-body Yukawa Dirichlet solve on the card and on the CPU,
     with every mh_slp launch of the card's run held to the plain version."""
+    # both runs on the host setup backend (the CPU's; the card's default,
+    # the device one, is held to the CPU in test_torch_device_setup.py)
+    monkeypatch.setenv("IPDE_QFS_BACKEND", "host")
     from ipde_tpu_torch.ops import kernels as K
     dev = _cuda()
     out = {}

@@ -296,10 +296,13 @@ def _cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("backend", ["dense", "fft"])
-def test_three_body_stokes_on_cuda_matches_cpu(three, backend):
+def test_three_body_stokes_on_cuda_matches_cpu(three, backend, monkeypatch):
     """The three-body solve + apply_bc on the card against the CPU, and each
     stokes_slp launch of the card's run (every distinct shape of this path)
     within 1e-12 of the plain version and bit-equal run to run."""
+    # both runs on the host setup backend (the CPU's; the card's default,
+    # the device one, is held to the CPU in test_torch_device_setup.py)
+    monkeypatch.setenv("IPDE_QFS_BACKEND", "host")
     from ipde_tpu_torch.ops import stokes_kernels as sk
     dev = _cuda()
     out = {}

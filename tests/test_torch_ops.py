@@ -4,6 +4,8 @@ Inputs are made with numpy from a seed.  Tolerances are relative to the
 largest value compared: 1e-13 unless stated, since both sides compute the
 same sums in float64 with FFTs and matmuls that order them differently."""
 
+import copy
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -92,6 +94,19 @@ def test_exact_interp_grad(exact_pair):
         for got, want in zip(t.from_modes_grad(batch),
                              j.from_modes_grad(_cx(batch))):
             _close(got, want)
+
+
+def test_exact_interp_chunks_fields(exact_pair):
+    """With a byte budget that fits two fields per chunk, the values and
+    gradients of three fields equal the unchunked ones bit for bit."""
+    _, t, f = exact_pair
+    c = torch.fft.fft2(torch.as_tensor(f))
+    whole = (t.from_modes(c), *t.from_modes_grad(c))
+    chunked = copy.copy(t)
+    chunked.max_temp_bytes = 2 * 16 * t.T * t.nx
+    assert len(chunked._chunks(c)) == 2
+    parts = (chunked.from_modes(c), *chunked.from_modes_grad(c))
+    assert all(torch.equal(a, b) for a, b in zip(parts, whole))
 
 
 @pytest.mark.parametrize("nx,ny,T", [

@@ -29,6 +29,7 @@ from ipde_tpu.geometry.grid import Grid as JGrid
 from ipde_tpu.ops.grid_eval import PeriodicGridEvaluator as JPGE
 from ipde_tpu.ops.kernels import expint_e1 as jexpint_e1
 from ipde_tpu_torch.geometry.grid import Grid
+from ipde_tpu_torch.ops import grid_eval
 from ipde_tpu_torch.ops.grid_eval import PeriodicGridEvaluator
 from ipde_tpu_torch.ops.kernels import expint_e1
 
@@ -123,6 +124,15 @@ def evaluators(request):
         out["q_" + tag] = q
         out["j_" + tag] = np.asarray(jev(jnp.asarray(q)))
         out["t_" + tag] = tev(torch.as_tensor(q)).numpy()
+    # the port's evaluator built with ipde_tpu's E1 (a reference fault, see
+    # test_expint_e1_matches_ipde_tpu): everything else must agree to 1e-12
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(grid_eval, "expint_e1", lambda x: torch.as_tensor(
+            np.array(jexpint_e1(jnp.asarray(x.numpy())))))
+        tev_j = PeriodicGridEvaluator(Grid((0.0, L), N, (0.0, L), N), sx,
+                                      sy, kernel=kernel, kappa=KAPPA,
+                                      device="cpu")
+    out["tj_in"] = tev_j(torch.as_tensor(q_in)).numpy()
     return out
 
 
@@ -143,11 +153,16 @@ def test_unpadded_periodic_box(evaluators):
 
 def test_matches_ipde_tpu_away_from_the_edges(evaluators):
     """Charges only on the sources whose patches stay inside the box: the
-    two packages agree at every grid point, and both with the
-    independent sum."""
+    two packages agree at every grid point (the port with ipde_tpu's E1;
+    with its own, by the Laplace near correction's share of ipde_tpu's E1
+    fault), and both with the independent sum."""
     got, want = evaluators["t_in"], evaluators["j_in"]
     assert got.shape == want.shape == (N, N)
-    assert np.abs(got - want).max() <= 1e-12
+    assert np.abs(evaluators["tj_in"] - want).max() <= 1e-12
+    gap = np.abs(got - want).max()
+    print(f"{evaluators['kernel']}: port - ipde_tpu {gap:.3e}")
+    if evaluators["kernel"] == "yukawa":
+        assert gap <= 1e-12
     i, j = _targets(*evaluators["src"])
     ref = _want(evaluators, evaluators["q_in"], i, j)
     assert np.abs(got[i, j] - ref).max() <= 1e-9
@@ -169,16 +184,22 @@ def test_sources_near_an_edge(evaluators):
 
 
 def test_expint_e1_matches_ipde_tpu():
+    """The port's E1 is within 1e-14 of scipy's exp1 on [1e-8, 44].
+    ipde_tpu's is a reference fault above x = 1: its degree-48 Chebyshev fit
+    on [1, 44] is 2.03e-8 off exp1 at x = 1.045, so the port is held to
+    ipde_tpu's within 3e-8 there and within 1e-14 below 1, where both sum
+    the power series."""
     x = np.geomspace(1e-8, 44.0, 4001)
     got = expint_e1(torch.as_tensor(x)).numpy()
     want = np.asarray(jexpint_e1(jnp.asarray(x)))
-    assert np.abs(got / want - 1.0).max() <= 1e-14
-    # both carry the Chebyshev fit's distance from the true E1 above x = 1
-    # (its degree 48 on [1, 44] resolves the log singularity at 0 to ~2e-8)
+    gap = np.abs(got / want - 1.0)
+    assert gap[x < 1.0].max() <= 1e-14
+    assert gap.max() <= 3e-8
     dist = np.abs(got / exp1(x) - 1.0)
-    print(f"expint_e1 vs scipy exp1: {dist.max():.3e} relative")
-    assert dist[x < 1.0].max() <= 1e-14
-    assert dist.max() <= 3e-8
+    ref_dist = np.abs(want / exp1(x) - 1.0)
+    print(f"expint_e1 vs scipy exp1: port {dist.max():.3e}, ipde_tpu "
+          f"{ref_dist.max():.3e} relative")
+    assert dist.max() <= 1e-14
 
 
 @pytest.mark.gpu

@@ -641,10 +641,13 @@ def test_cuda_kernel_carries_nan():
 
 
 @pytest.mark.gpu
-def test_slice_on_cuda_matches_cpu():
+def test_slice_on_cuda_matches_cpu(monkeypatch):
     """star(128, a=0.1, f=5), M=8 solved by the port on the card and on the
     CPU: the kernel's and the plain version's sums differ in order only, and
     GMRES stops at 1e-12."""
+    # both runs on the host setup backend (the CPU's; the card's default,
+    # the device one, is held to the CPU in test_torch_device_setup.py)
+    monkeypatch.setenv("IPDE_QFS_BACKEND", "host")
     out = {}
     for dev in ("cpu", _cuda()):
         bdy = star(NB, a=0.1, f=5)

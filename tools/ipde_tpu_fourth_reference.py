@@ -26,6 +26,11 @@ chip_smoke.py's phase 7 runs through the port:
     JAX_PLATFORMS=cpu python tools/ipde_tpu_fourth_reference.py \\
         [--cases fourth_poisson fourth_stokes examples poisson_rows]
 
+ipde_tpu picks its host setup backend on the CPU; IPDE_QFS_BACKEND=device
+in the environment gives its device backend's values (device-built forms,
+band-limited source compression, min-norm composes), which chip_smoke.py
+holds the port's device backend to.
+
 Prints one JSON line per case.  Writes nothing (the examples' main()
 records into LEDGER_TPU.json; their run_case does not).
 """

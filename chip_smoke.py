@@ -78,7 +78,9 @@ phase prints its seconds):
        - stepper: examples/coupled_advection_diffusion.py at its defaults,
          star(200, a=0.1, f=3), M=10, generate_grid(bh, pad_quantum=2048),
          nu = 0.05, dt = 0.05 (k = 20), the rigid rotation u = -y, v = x,
-         4 steps of CoupledAdvectionDiffusionStepper (GMRES tol 1e-12),
+         4 steps of CoupledAdvectionDiffusionStepper (GMRES tol 1e-12;
+         planify=False, so that every launch is recorded; phase 10 runs
+         the planified stepper),
          every count set to 0 before step 1 and read after step 4; each
          step's generate / advect / setup / solve seconds and mh_slp
          launches; step 2 traced by torch.profiler (device ms, idle share);
@@ -181,7 +183,28 @@ phase prints its seconds):
      backend held to the problem's limit above, the gap between the two
      solutions; the device-backend solve's launches counted (every count
      set to 0 just before it) and held with hold_calls.
- 10. print the kernels' JSON line, the card's name and power limit, then
+ 10. planify (ipde_tpu_torch/utils/planify.py): on the fft solvers and
+     BIEs of phases 2-5 (Poisson nb=1200, Stokes tier 1, Yukawa k = 2
+     Dirichlet, stokes_3body), one warm eager solve + apply_bc under
+     torch.cuda.set_sync_debug_mode("warn") (any synchronizing call fails
+     the phase: GMRES's status reads are event waits, not syncs), then
+     planified(solve + apply_bc, solver, bie) against the eager solve: every
+     field within TOL_PLANIFY (1e-13) of its max (bit-equal fields
+     counted), the same GMRES iterations, the problem's error limit of its
+     phase, the launches of the first call (every count set to 0 just
+     before it: warm-up, capture, one replay); WARM_RUNS warm solves of each
+     in alternating turns; 3 solves of each traced by torch.profiler
+     (device ms, kernels, idle share); host waits per solve, graph
+     segments, GMRES loops, plan arrays and bytes, the graphs' pool bytes
+     and the capture seconds.  Then the stepper of phase 6 planified (the
+     default; phase 6 runs it with planify=False): 4 steps, recompiles 0,
+     the error within TOL_COUPLED_ABS of ipde_tpu's, the final fields within
+     1e-12 of phase 6's, each step's advect / solve seconds beside phase
+     6's and its replan seconds, its launches counted.  Then each of the
+     four kernels captured alone in a CUDA graph at its merged main-path
+     shape: the replay within 1e-12 (relative) of the plain version and
+     bit-equal to the eager launch, the replayed launch timed.
+ 11. print the kernels' JSON line, the card's name and power limit, then
      the device JSON line last.
 Phases 2-8 build their setups with the backend qfs.auto_backend picks: on
 the card "device" from qfs.DEVICE_MIN boundary points (forms born on the
@@ -361,6 +384,8 @@ MESH_ULPS = 16
 # from its host twin, relative to the form's max (tests/test_forms_dev.py)
 SETUP_NEUMANN = (2.0, 300, 12, 5e-9)
 SETUP_FORM_TOL = 1e-12
+# phase 10: planified against eager, of each field's max
+TOL_PLANIFY = 1e-13
 # what earlier phases leave for phases 7-9 to reuse (collections, errors)
 SHARED = {}
 
@@ -702,9 +727,11 @@ def warm_text(warm):
             f"{max(ms):.1f}, {len(ms)} runs)")
 
 
-def profile_device(run, reps=3):
+def profile_device(run, reps=3, kernels=False):
     """``reps`` runs traced by torch.profiler: (wall ms per run, device
-    kernel ms per run, idle share of the traced window)."""
+    kernel ms per run, idle share of the traced window), and with
+    ``kernels`` the device events per run (a replayed graph's kernels are
+    traced one by one)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -714,11 +741,13 @@ def profile_device(run, reps=3):
             run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = 1e-3 * sum(e.device_time_total for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA)
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = 1e-3 * sum(e.device_time_total for e in events)
     if busy <= 0:
         raise RuntimeError("the profiler recorded no device time")
-    return wall / reps, busy / reps, 1.0 - busy / wall
+    out = (wall / reps, busy / reps, 1.0 - busy / wall)
+    return out + (len(events) / reps,) if kernels else out
 
 
 def report_backend(label, backend, setup_s, first_s, warm, run):
@@ -810,6 +839,8 @@ def scalar_fft_run(label, make_solver, bie_cls, f, bc, exact, limit,
     grid_err, rad_err = max_err(ebdyc, ue, exact)
     err = max(grid_err, rad_err)
     SHARED[f"{label}_fft_err"] = err
+    SHARED[f"planify {label}"] = (solver, bie, (f, bc),
+                                  scalar_check(exact, limit))
     if label == "poisson":
         SHARED["mesh poisson_nb1200 [fft]"] = (solver, solve_run(
             solver, bie, f, bc))
@@ -1127,6 +1158,8 @@ def stokes_fft_run(SK, counters, dense_solver, dense_bie, fs, bcs):
     ((u, v, p), stats), launches, first_s, warm = timed_runs(run, counters)
     SHARED["mesh stokes_tier1 [fft]"] = (solver, solve_run(solver, bie, fs,
                                                            bcs))
+    SHARED["planify stokes_tier1"] = (solver, bie, (fs, bcs),
+                                      stokes_tier1_check)
     g = ebdyc.grid
     vel_err = max(max(max_err(ebdyc, u, usol)), max(max_err(ebdyc, v, vsol)))
     shift = float((p.grid.cpu().numpy() - psol(g.xg, g.yg))[ebdyc.phys]
@@ -1507,6 +1540,37 @@ def build_inclusion_poisson(dev, M=10):
     return ebdyc, grid, data
 
 
+def scalar_check(exact, limit):
+    """check(ebdyc, ue) -> (max error over the physical grid and every
+    radial grid against ``exact``, ``limit``, text)."""
+    def check(ebdyc, ue):
+        g, r = max_err_all(ebdyc, ue, exact)
+        err = max(g, *r)
+        return err, limit, (
+            f"max error {err:.3e} (grid {g:.3e}, radial "
+            f"{', '.join(f'{a:.3e}' for a in r)}; limit {limit:.3g})")
+    return check
+
+
+def stokes_tier1_check(ebdyc, out):
+    """Phase 3's rule on (u, v, p): (the velocity error, TOL_STOKES_VEL,
+    text); raises when the pressure error after its mean shift is not
+    below TOL_STOKES_P."""
+    u, v, p = out
+    g = ebdyc.grid
+    vel = max(max(max_err(ebdyc, u, usol)), max(max_err(ebdyc, v, vsol)))
+    shift = float((p.grid.cpu().numpy() - psol(g.xg, g.yg))[ebdyc.phys]
+                  .mean())
+    p_err = max(max_err(ebdyc, p, psol, shift))
+    if not (math.isfinite(p_err) and p_err < TOL_STOKES_P):
+        raise RuntimeError(f"stokes pressure error {p_err:.3e} >= "
+                           f"{TOL_STOKES_P}")
+    return vel, TOL_STOKES_VEL, (
+        f"velocity error {vel:.4e} (limit {TOL_STOKES_VEL:.4e}), pressure "
+        f"error {p_err:.3e} (limit {TOL_STOKES_P:.0e}, mean shift "
+        f"{shift:.3e})")
+
+
 def multi_problems():
     """(label, builder, kernel name, solver factory (ebdyc, backend),
     BIE class, run(solver, bie, data) -> (fields, stats), check(ebdyc,
@@ -1547,15 +1611,6 @@ def multi_problems():
             f"against the reference paper's row, {TOL_STOKES3_PAPER:.4e}, "
             f"{'met' if err <= TOL_STOKES3_PAPER else 'NOT met'}; pressure "
             f"error {max(pg, *pr):.3e} after a mean shift of {shift:.3e}")
-
-    def scalar_check(exact, limit):
-        def check(ebdyc, ue):
-            g, r = max_err_all(ebdyc, ue, exact)
-            err = max(g, *r)
-            return err, limit, (
-                f"max error {err:.3e} (grid {g:.3e}, radial "
-                f"{', '.join(f'{a:.3e}' for a in r)}; limit {limit:.3g})")
-        return check
 
     return (
         ("stokes_3body", build_three_body_stokes, "stokes_slp",
@@ -1659,11 +1714,12 @@ def hold_batched(label, helpers, rhss, batched, one):
         for k, (a, b) in enumerate(zip(g, w)):
             c = (a.mean() - b.mean()) if k == 2 else 0.0
             gap = max(gap, float((a - b - c).abs().max() / b.abs().max()))
-    its = [s["iterations"] for _, s in loop]
+    its = [int(s["iterations"]) for _, s in loop]
     b_ms = 1e3 * statistics.median(timed(run_batched) for _ in range(5))
     l_ms = 1e3 * statistics.median(timed(run_loop) for _ in range(5))
     print(f"# {label}: batched GMRES over {len(helpers)} annuli of (M, n) = "
-          f"{(solvers[0].M, solvers[0].n)}: iterations {st['iterations']} "
+          f"{(solvers[0].M, solvers[0].n)}: iterations "
+          f"{[int(i) for i in st['iterations']]} "
           f"(loop {its}), residuals "
           f"{', '.join(f'{r:.3e}' for r in st['residual'])}, max |batched - "
           f"loop| / max |loop| {gap:.3e} (limit 1e-10); median of 5: "
@@ -1718,10 +1774,12 @@ def multi_body_phase(dev, K, SK, counters):
             if label == "stokes_3body" and backend == "fft":
                 SHARED["mesh stokes_3body [fft]"] = (solver, solve_run(
                     solver, bie, *data))
+                SHARED["planify stokes_3body"] = (solver, bie, data, check)
             err, limit, text = check(ebdyc, out)
             resid = max(stats["annular_residuals"])
             print(f"# {label} [{backend}] solve: GMRES iterations "
-                  f"{stats['annular_iterations']}, max residual "
+                  f"{[int(i) for i in stats['annular_iterations']]}, max "
+                  f"residual "
                   f"{resid:.3e}, {text}, launches {got}", flush=True)
             if not (math.isfinite(err) and err <= limit):
                 raise RuntimeError(f"{label} [{backend}] error {err:.4e} > "
@@ -1817,8 +1875,10 @@ def stepper_phase(dev, K, counters):
                 EmbeddedFunction.from_function(ec, lambda x, y: x))
 
     stepper = CoupledAdvectionDiffusionStepper(ebdyc, velocity, ADV_NU,
-                                               ADV_DT, tol=GMRES_TOL)
-    print(f"# stepper: star({ADV_NB}, a=0.1, f=3), M={ADV_M}, grid "
+                                               ADV_DT, tol=GMRES_TOL,
+                                               planify=False)
+    SHARED["stepper"] = (ebdyc, c, velocity)
+    print(f"# stepper (eager): star({ADV_NB}, a=0.1, f=3), M={ADV_M}, grid "
           f"{grid.shape}, pad_quantum {ADV_PQ} (pna {ebdyc.pna_x.size} of "
           f"{ebdyc.phys_not_in_annulus.sum()} real), k = {stepper.k:g}, "
           f"{time.perf_counter() - t_phase:.2f} s", flush=True)
@@ -1846,6 +1906,7 @@ def stepper_phase(dev, K, counters):
         wall_s = time.perf_counter() - t0
         per_step.append(K.mh_slp_apply.launches - before)
         t = stepper.last_times
+        SHARED.setdefault("stepper times", []).append(dict(t))
         print(f"# stepper step {n + 1}/{ADV_STEPS}: generate "
               f"{t['generate_s']:.3f} s, advect {t['advect_s']:.3f} s, setup "
               f"{t['setup_s']:.3f} s, solve {t['solve_s']:.3f} s (step "
@@ -1856,6 +1917,7 @@ def stepper_phase(dev, K, counters):
     err = rel_err_all(stepper.ebdyc, state["c"],
                       lambda x, y: coupled_exact(x, y, T_end))
     mass = stepper.ebdyc.volume_integral(state["c"])
+    SHARED["stepper final"] = state["c"]
     ref = IPDE_TPU_COUPLED_CPU
     print(f"# stepper: rel err {err:.10e} after T={T_end:g} (ipde_tpu on the "
           f"CPU {ref['rel_err']:.10e}, |diff| {abs(err - ref['rel_err']):.3e}"
@@ -2062,7 +2124,8 @@ def fourth_run(label, ebdyc, setup_s, run, check, counters, kname, held,
     gap = abs(err / ref - 1.0)
     resid = max(stats["annular_residuals"])
     print(f"# fourth {label} solve: GMRES iterations "
-          f"{stats['annular_iterations']}, max residual {resid:.3e}, {text} "
+          f"{[int(i) for i in stats['annular_iterations']]}, max residual "
+          f"{resid:.3e}, {text} "
           f"(ipde_tpu on the CPU, {backend} setup, {ref:.10e}, ratio "
           f"{err / ref:.7f}, "
           f"|err - ipde_tpu| {abs(err - ref):.3e}; limits |ratio - 1| <= "
@@ -2337,16 +2400,24 @@ def examples_phase(K, SK, counters):
     errs = {name: 0.0 for name in counters}
 
     def counted(label, fn):
+        from ipde_tpu_torch.utils.planify import launch_book
         for c in counters.values():
             c.launches = 0
+        book = launch_book()
         out, calls = record_all_launch_args(fn, holds)
         for name, c in counters.items():
             launches[name] += c.launches
         for name, got in calls.items():
-            if len(got) != counters[name].launches:
+            # a planified run's capture records calls that do not run and
+            # its replays run launches that make no call
+            attr = holds[name][1]
+            cap, rep = (a - b for a, b in zip(launch_book()[attr],
+                                              book[attr]))
+            if len(got) - cap + rep != counters[name].launches:
                 raise RuntimeError(f"{label}: {len(got)} {name} launches "
-                                   f"recorded, {counters[name].launches} "
-                                   "counted")
+                                   f"recorded ({cap} of them captured, "
+                                   f"{rep} replayed), "
+                                   f"{counters[name].launches} counted")
             if got:
                 module, attr, plain, err, bound_of = holds[name]
                 errs[name] = max(errs[name], hold_calls(
@@ -2598,8 +2669,8 @@ def mesh_solve(label, mesh, solver, run, counters, holds):
     (field, part), (gap, scale) = max(gaps.items(), key=lambda kv: kv[1][0])
     (ufield, upart), (ugap, uscale) = max(ulps.items(),
                                           key=lambda kv: kv[1][0] / kv[1][1])
-    its, base_its = stats["annular_iterations"], base_stats[
-        "annular_iterations"]
+    its, base_its = ([int(i) for i in s["annular_iterations"]]
+                     for s in (stats, base_stats))
     print(f"# mesh {label}: iterations {its} (unsharded {base_its}), max "
           f"|mesh - unsharded| {gap:.3e} (on field {field} {part}, whose "
           f"max |unsharded| is {scale:.3e}; there one ulp up gives "
@@ -3008,6 +3079,264 @@ def setup_phase(K, SK, counters):
     return launches, errs
 
 
+def planify_problem(label, solver, bie, data, check, counters):
+    """One problem planified against eager (see the module docstring's
+    phase 10).  Returns the launches of the planified run by kernel."""
+    from ipde_tpu_torch.functions import EmbeddedFunction
+    from ipde_tpu_torch.ops.gmres import LockstepGmres
+    from ipde_tpu_torch.utils.planify import planified
+    stokes = isinstance(data[0], tuple)
+    nb = len(solver.helpers)
+    kw = dict(tol=GMRES_TOL, maxiter=100, restart=30)
+    if stokes:
+        (fu, fv), bcs = data
+        args = (fu.grid, *fu.radials, fv.grid, *fv.radials)
+    else:
+        f, bc = data
+        args = (f.grid, *f.radials)
+
+    def fn(*a):
+        if stokes:
+            (u, v, p), st = solver.solve_with_stats(
+                EmbeddedFunction(a[0], list(a[1:1 + nb])),
+                EmbeddedFunction(a[1 + nb], list(a[2 + nb:])), **kw)
+            out = bie.apply_bc(u, v, p, *bcs)
+        else:
+            ue, st = solver.solve_with_stats(
+                EmbeddedFunction(a[0], list(a[1:])), **kw)
+            out = (bie.apply_bc(ue, bc),)
+        return [t for ef in out for t in (ef.grid, *ef.radials)], st
+
+    def as_fields(flat):
+        n = nb + 1
+        efs = [EmbeddedFunction(flat[i], list(flat[i + 1:i + n]))
+               for i in range(0, len(flat), n)]
+        return efs if stokes else efs[0]
+
+    def eager():
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out
+
+    want, wst = eager()
+    # a warm eager solve makes no host sync but GMRES's status reads
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sorted({f"{w.filename}:{w.lineno}" for w in caught
+                    if "called a synchronizing" in str(w.message)})
+    if syncs:
+        raise RuntimeError(f"planify {label}: a warm eager solve "
+                           f"synchronizes at {syncs}")
+    run = planified(fn, solver, bie)
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    got, st = run(*args)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    cap = run.captured
+    gaps = [float((g - w).abs().max()) for g, w in zip(got, want)]
+    scales = [float(w.abs().max()) for w in want]
+    equal = sum(torch.equal(g, w) for g, w in zip(got, want))
+    its = [int(v) for v in st["annular_iterations"]]
+    wits = [int(v) for v in wst["annular_iterations"]]
+    resid = max(float(v) for v in st["annular_residuals"])
+    err, limit, text = check(solver.ebdyc, as_fields(got))
+    worst = max(g / sc if sc > 0 else g for g, sc in zip(gaps, scales))
+    print(f"# planify {label}: planified vs eager max |diff| / max|field| "
+          f"{worst:.3e} (tol {TOL_PLANIFY:.0e}; {equal} of {len(got)} fields "
+          f"bit-equal), iterations {its} (eager {wits}), residual "
+          f"{resid:.3e}, {text}, launches {launches}", flush=True)
+    if not worst <= TOL_PLANIFY:
+        raise RuntimeError(f"planify {label}: planified differs from eager "
+                           f"by {worst:.3e} of a field's max")
+    if its != wits:
+        raise RuntimeError(f"planify {label}: iterations {its} != {wits}")
+    if not (math.isfinite(err) and err <= limit):
+        raise RuntimeError(f"planify {label}: error {err:.4e} > {limit:.4e}")
+    if not resid <= GMRES_TOL:
+        raise RuntimeError(f"planify {label}: residual {resid:.3e}")
+    if sum(launches.values()) <= 0:
+        raise RuntimeError(f"planify {label}: no kernel launched")
+    warm_e, warm_p = [], []
+    for _ in range(WARM_RUNS):
+        for warm, call in ((warm_e, eager), (warm_p, lambda: run(*args))):
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+    reads0 = LockstepGmres.host_reads
+    run(*args)
+    torch.cuda.synchronize()
+    reads = LockstepGmres.host_reads - reads0
+    rec = cap.recorder
+    segs = sum(1 for s in rec.steps if s[0] == "graph")
+    loops = sum(1 for s in rec.steps if s[0] == "loop")
+    pe = profile_device(lambda: run(*args), kernels=True)
+    ee = profile_device(eager, kernels=True)
+
+    def prof_text(p):
+        wall, busy, idle, kern = p
+        return (f"wall {wall:.3f} ms, device {busy:.3f} ms, {kern:.0f} "
+                f"kernels, idle share {idle:.3f}")
+
+    print(f"# planify {label}: first call {first_s:.3f} s (warm-up + capture "
+          f"{cap.capture_s:.3f} s + replay); warm planified "
+          f"{warm_text(warm_p)}, eager {warm_text(warm_e)} (alternating "
+          f"turns); per solve profiled (3 solves, profiler on): planified "
+          f"{prof_text(pe)}; eager {prof_text(ee)}; host waits per solve "
+          f"{reads}; {segs} graph segments + {loops} GMRES loops "
+          f"({rec.n_graphs} graphs); {run.store.n_arrays} plan arrays, "
+          f"{cap.plan_bytes / 2**20:.1f} MiB; pool "
+          f"{cap.pool_bytes / 2**20:.1f} MiB", flush=True)
+    return launches
+
+
+def graph_kernels(K, SK):
+    """Each kernel captured alone in a CUDA graph at its merged main-path
+    shape: the replay against the plain version (TOL_KERNEL_REL) and the
+    eager launch (bit for bit), and the replayed launch timed.  Returns the
+    max abs difference from the plain version by kernel."""
+    rng = np.random.default_rng(12)
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def charges(s):
+        S = s.grid_src_x.shape[0]
+        return torch.as_tensor(rng.standard_normal(S) / S, device=dev)
+
+    pois, _ = SHARED["mesh poisson_nb1200 [dense]"]
+    sto, _ = SHARED["mesh stokes_tier1 [dense]"]
+    mh = SHARED["mh_dirichlet_k2 [dense] solver"]
+    lap = (pois.grid_src_x, pois.grid_src_y, charges(pois), pois._dense_tx,
+           pois._dense_ty)
+    stk = (sto.grid_src_x, sto.grid_src_y, charges(sto), charges(sto),
+           sto._dense_tx, sto._dense_ty)
+    yuk = (mh.grid_src_x, mh.grid_src_y, charges(mh), mh._dense_tx,
+           mh._dense_ty, mh.k)
+    cases = (("laplace_slp", K.laplace_slp_apply, K.laplace_slp_apply_plain,
+              laplace_err, lap),
+             ("laplace_grad", K.laplace_slp_grad_apply,
+              K.laplace_slp_grad_apply_plain, grad_err, lap),
+             ("stokes_slp", SK.stokes_slp_apply, SK.stokes_slp_apply_plain,
+              stokes_err, stk),
+             ("mh_slp", K.mh_slp_apply, K.mh_slp_apply_plain, laplace_err,
+              yuk))
+    errs = {}
+    for name, kernel, plain, err, args in cases:
+        before = kernel.launches
+        eager = kernel(*args)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            kernel(*args)
+            with torch.cuda.graph(graph, stream=side):
+                out = kernel(*args)
+        torch.cuda.current_stream().wait_stream(side)
+        graph.replay()
+        want = plain(*args)
+        torch.cuda.synchronize()
+        kernel.launches = before
+        outs = out if isinstance(out, tuple) else (out,)
+        eag = eager if isinstance(eager, tuple) else (eager,)
+        same = all(torch.equal(a, b) for a, b in zip(outs, eag))
+        abs_err, rel_err = err(out, want)
+        ms, eager_ms = cuda_ms(graph.replay), cuda_ms(lambda: kernel(*args))
+        kernel.launches = before
+        T, S = args[4 if name == "stokes_slp" else 3].shape[0], \
+            args[0].shape[0]
+        print(f"# planify {name} in a CUDA graph: T={T} S={S}, replay "
+              f"against the plain version max_abs={abs_err:.3e} max_rel="
+              f"{rel_err:.3e} (tol {TOL_KERNEL_REL:.0e}), bit-equal to the "
+              f"eager launch: {same}; replayed {ms:.4f} ms, eager launch "
+              f"{eager_ms:.4f} ms", flush=True)
+        if not rel_err <= TOL_KERNEL_REL:
+            raise RuntimeError(f"{name} replayed in a graph disagrees with "
+                               f"the plain version: {rel_err:.3e}")
+        if not same:
+            raise RuntimeError(f"{name} replayed in a graph differs from "
+                               "its eager launch")
+        errs[name] = abs_err
+        del graph
+    return errs
+
+
+def planify_stepper(counters):
+    """CoupledAdvectionDiffusionStepper at phase 6's settings, planified (the
+    default): 4 steps, recompiles 0, the error within TOL_COUPLED_ABS of
+    ipde_tpu's and the final fields within 1e-12 of the eager stepper's
+    (phase 6).  Returns its launches by kernel."""
+    from ipde_tpu_torch.advection.stepper import \
+        CoupledAdvectionDiffusionStepper
+    ebdyc, c, velocity = SHARED["stepper"]
+    stepper = CoupledAdvectionDiffusionStepper(ebdyc, velocity, ADV_NU,
+                                               ADV_DT, tol=GMRES_TOL)
+    for cnt in counters.values():
+        cnt.launches = 0
+    eager_t = SHARED["stepper times"]
+    for n in range(ADV_STEPS):
+        t0 = time.perf_counter()
+        c = stepper.step(c)
+        wall = time.perf_counter() - t0
+        t, e = stepper.last_times, eager_t[n]
+        print(f"# planify stepper step {n + 1}/{ADV_STEPS}: generate "
+              f"{t['generate_s']:.3f} s, advect {t['advect_s']:.3f} s "
+              f"(eager {e['advect_s']:.3f}), setup {t['setup_s']:.3f} s, "
+              f"solve {t['solve_s']:.3f} s (eager {e['solve_s']:.3f}), replan "
+              f"{stepper.last_replan_s:.4f} s, step {wall:.3f} s", flush=True)
+    launches = {name: cnt.launches for name, cnt in counters.items()}
+    T_end = ADV_STEPS * ADV_DT
+    err = rel_err_all(stepper.ebdyc, c,
+                      lambda x, y: coupled_exact(x, y, T_end))
+    ref = SHARED["stepper final"]
+    gap = max(float((a - b).abs().max()) for a, b in
+              zip((c.grid, *c.radials), (ref.grid, *ref.radials)))
+    scale = float(ref.grid.abs().max())
+    print(f"# planify stepper: rel err {err:.10e} (ipde_tpu on the CPU "
+          f"{IPDE_TPU_COUPLED_CPU['rel_err']:.10e}, limit "
+          f"{TOL_COUPLED_ABS:.0e}), max |planified - eager| {gap:.3e} of max {scale:.3e}, "
+          f"recompiles {stepper.recompiles} {stepper.miss_log}, launches "
+          f"{launches}", flush=True)
+    if not (math.isfinite(err) and abs(err - IPDE_TPU_COUPLED_CPU["rel_err"])
+            <= TOL_COUPLED_ABS):
+        raise RuntimeError(f"planify stepper error {err:.10e}")
+    if stepper.recompiles != 0:
+        raise RuntimeError(f"planify stepper recompiled: {stepper.miss_log}")
+    if not gap <= 1e-12 * scale:
+        raise RuntimeError(f"planify stepper differs from the eager one by "
+                           f"{gap:.3e}")
+    return launches
+
+
+def planify_phase(K, SK, counters):
+    """Phase 10 (see the module docstring); returns (launches by kernel,
+    max abs difference from the plain version by kernel)."""
+    t_phase = time.perf_counter()
+    launches = {name: 0 for name in counters}
+    for label in ("poisson", "stokes_tier1", "mh_dirichlet_k2",
+                  "stokes_3body"):
+        got = planify_problem(label, *SHARED.pop(f"planify {label}"),
+                              counters)
+        for name, n in got.items():
+            launches[name] += n
+        torch.cuda.empty_cache()
+    for name, n in planify_stepper(counters).items():
+        launches[name] += n
+    errs = graph_kernels(K, SK)
+    print(f"# planify phase {time.perf_counter() - t_phase:.2f} s",
+          flush=True)
+    return launches, errs
+
+
+
 def main():
     t_start = time.perf_counter()
     # ---- phase 1: device, card, build ------------------------------------
@@ -3065,11 +3394,16 @@ def main():
     for name, n in setup_launches.items():
         launches[name] += n
         errs[name] = max(errs[name], setup_errs[name])
+    # ---- phase 10: planified solves, the stepper, kernels in graphs --------
+    plan_launches, plan_errs = planify_phase(K, SK, counters)
+    for name, n in plan_launches.items():
+        launches[name] += n
+        errs[name] = max(errs[name], plan_errs[name])
     for entry in kernels:
         entry["launches"] += launches[entry["name"]]
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[entry["name"]])
 
-    # ---- phase 10: results -------------------------------------------------
+    # ---- phase 11: results -------------------------------------------------
     print(f"# total {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,6 +1,6 @@
 """Pieces shared by the port's example scripts (examples/torch_*.py): the
-device argument, the GMRES tolerance rule, the error measure and the
-timing columns.
+device argument, the GMRES tolerance rule, the error measure, the timing
+columns and the planified warm solve.
 
 GMRES tolerance.  The port's annular solves check the TRUE residual and
 raise above tol (ipde_tpu reports the Arnoldi estimate and never checks
@@ -51,3 +51,33 @@ def time_cols(row) -> str:
 
 TIME_HEAD = (f"{'setup_s':>8} {'first_s':>8} {'solve_ms':>9} (min-max of "
              f"{WARM_SOLVES} warm)")
+PLAN_HEAD = f"{'plan_first_s':>12} {'planified_ms':>12} (min-max)"
+
+
+def plan_cols(row) -> str:
+    """The planified columns of a printed row."""
+    return (f"{row['planified_first_s']:>12.2f} {row['planified_ms']:>12.2f} "
+            f"({row['planified_ms_min']:.2f}-{row['planified_ms_max']:.2f})")
+
+
+def planified_times(step, roots, args):
+    """The warm solve through ``utils.planify.planified(step, *roots)``, as
+    the reference drivers time it: the first call (on a card: warm-up and
+    CUDA-graph capture) and then WARM_SOLVES calls, each read after the
+    synchronization of its result.  Returns (the first call's output,
+    {"planified_first_s", "planified_ms" (median), "planified_ms_min",
+    "planified_ms_max"})."""
+    from ipde_tpu_torch.utils.planify import planified
+    from ipde_tpu_torch.utils.profiling import time_solves
+    run = planified(step, *roots)
+    out, t = time_solves(lambda: run(*args), WARM_SOLVES)
+    return out, {"planified_first_s": t["first_s"],
+                 "planified_ms": t["solve_ms"],
+                 "planified_ms_min": t["solve_ms_min"],
+                 "planified_ms_max": t["solve_ms_max"]}
+
+
+def host_stats(st) -> dict:
+    """The solve's GMRES stats (device tensors) as ledger values."""
+    return {"iterations": [int(i) for i in st["annular_iterations"]],
+            "residual": max(float(r) for r in st["annular_residuals"])}

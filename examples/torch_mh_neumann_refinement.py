@@ -85,8 +85,7 @@ def run_case(k, nb, M, tol=1e-13, device=None):
     (ue, st), times = time_solves(run, common.WARM_SOLVES)
     return {"k2": k * k, "nb": nb, "M": M,
             "err": common.max_err(ebdyc, ue, sol), "setup_s": setup_s,
-            **times, "iterations": st["annular_iterations"],
-            "residual": max(st["annular_residuals"]), "tol": tol}
+            **times, **common.host_stats(st), "tol": tol}
 
 
 # reference converged values per k^2 (same file :120,:128)

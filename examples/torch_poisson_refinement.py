@@ -10,8 +10,13 @@ correction, and records err, dof, setup_s, first_s (the first solve, CUDA
 library start-up included) and solve_ms (the median of 5 warm solves, with
 min and max, each read after torch.cuda.synchronize()) into
 LEDGER_TORCH.json under "poisson_refinement@<card>", each row with the
-card's name and power limit.  There is no compile step (no planify).
-Exit code 1 when a row misses 3 x its reference error.
+card's name and power limit.  As examples/poisson_refinement.py does, the
+warm solve is also timed through ``utils.planify.planified`` (on a card: a
+replay of CUDA graphs): planified_first_s (warm-up and capture) and
+planified_ms (median, min, max of 5), beside the eager columns; the error
+and the rule are the eager solve's, and the planified grid must agree with
+it to 1e-13 of its max.  Exit code 1 when a row misses 3 x its reference
+error.
 
 GMRES tol 1e-13 as in the reference; see examples/_torch_common.py for the
 port's rule (the true residual; a row that misses it raises).
@@ -71,12 +76,22 @@ def run_case(nb, M, tol=1e-13, device=None):
         ue, st = solver.solve_with_stats(f, tol=tol, maxiter=100, restart=30)
         return bie.apply_bc(ue, bc), st
 
+    def step(fg, fr):
+        ue = bie.apply_bc(solver(EmbeddedFunction(fg, [fr]), tol=tol,
+                                 maxiter=100, restart=30), bc)
+        return ue.grid, ue.radials[0]
+
     (ue, st), times = time_solves(run, common.WARM_SOLVES)
+    out, plan_times = common.planified_times(step, (solver, bie),
+                                             (f.grid, f.radials[0]))
+    gap = float((out[0] - ue.grid).abs().max() / ue.grid.abs().max())
+    if not gap <= 1e-13:
+        raise RuntimeError(f"nb={nb}: the planified solve differs from the "
+                           f"eager one by {gap:.3e} of max |u|")
     dof = int(ebdyc.phys.sum() + np.prod(ebdy.radial_shape))
     return {"nb": nb, "M": M, "err": common.max_err(ebdyc, ue, sol),
             "dof": dof, "grid": list(grid.shape), "setup_s": setup_s,
-            **times, "iterations": st["annular_iterations"],
-            "residual": max(st["annular_residuals"]), "tol": tol}
+            **times, **plan_times, **common.host_stats(st), "tol": tol}
 
 
 # reference ledger rows this sweep must meet or beat at matched nb
@@ -100,7 +115,7 @@ def main():
     cases = [tuple(int(v) for v in c.split(",")) for c in spec.split()]
     print("# " + common.TOL_RULE, flush=True)
     print(f"{'nb':>6} {'M':>3} {'dof':>9} {'err':>10} {'ref_err':>10} "
-          f"{common.TIME_HEAD}", flush=True)
+          f"{common.TIME_HEAD} {common.PLAN_HEAD}", flush=True)
     rows = []
     for nb, M in cases:
         row = run_case(nb, M, device=device)
@@ -108,7 +123,8 @@ def main():
         rows.append(row)
         ref = row["ref_err"]
         print(f"{nb:>6} {M:>3} {row['dof']:>9} {row['err']:>10.4e} "
-              f"{(f'{ref:.4e}' if ref else '-'):>10} {common.time_cols(row)}",
+              f"{(f'{ref:.4e}' if ref else '-'):>10} {common.time_cols(row)} "
+              f"{common.plan_cols(row)}",
               flush=True)
     from ipde_tpu_torch.utils.ledger import record
     record("poisson_refinement", rows, ("nb", "M"), device=device)

@@ -9,8 +9,13 @@ half the points (STOKES_NBI_FACTOR=1: the same), M_i = max(M // 2 + 2, 6).
 The error is the max abs velocity error over the physical grid and every
 radial grid.  Rows (err, dof, setup_s, first_s, solve_ms: the median of 5
 warm solves with min and max, read after torch.cuda.synchronize()) go into
-LEDGER_TORCH.json under "stokes_refinement@<card>".  Exit code 1 when a
-row misses 3 x its reference error.
+LEDGER_TORCH.json under "stokes_refinement@<card>", with the warm solve
+also timed through ``utils.planify.planified`` as
+examples/stokes_refinement.py does (planified_first_s: warm-up and
+capture on a card; planified_ms: median, min, max of 5); the planified
+velocity must agree with the eager one to 1e-13 of its max, and the error
+and the rule are the eager solve's.  Exit code 1 when a row misses 3 x its
+reference error.
 
 The port's BIE takes every source in the radial plans of an inclusion and
 of another boundary (ipde_tpu subsamples them; ROADMAP.md Queue 3), so its
@@ -94,14 +99,29 @@ def run_case(nb, M, tol=1e-12, device=None):
                                                 restart=30)
         return bie.apply_bc(u, v, p, bu, bv), st
 
+    def step(fg, gg, *frs):
+        k = len(frs) // 2
+        u, v, p = solver(EmbeddedFunction(fg, list(frs[:k])),
+                         EmbeddedFunction(gg, list(frs[k:])),
+                         tol=tol, maxiter=100, restart=30)
+        u, v, p = bie.apply_bc(u, v, p, bu, bv)
+        return (u.grid, v.grid) + tuple(u.radials) + tuple(v.radials)
+
     ((u, v, _), st), times = time_solves(run, common.WARM_SOLVES)
+    out, plan_times = common.planified_times(
+        step, (solver, bie), (FU.grid, FV.grid, *FU.radials, *FV.radials))
+    scale = max(float(u.grid.abs().max()), float(v.grid.abs().max()))
+    gap = max(float((a - b).abs().max()) for a, b in zip(out, (
+        u.grid, v.grid, *u.radials, *v.radials))) / scale
+    if not gap <= 1e-13:
+        raise RuntimeError(f"nb={nb}: the planified solve differs from the "
+                           f"eager one by {gap:.3e} of max |u|, |v|")
     err = max(common.max_err(ebdyc, u, usol), common.max_err(ebdyc, v, vsol))
     dof = int(ebdyc.phys.sum() + sum(np.prod(e.radial_shape)
                                      for e in ebdyc))
     return {"nb": nb, "M": M, "err": err, "dof": dof,
             "grid": list(ebdyc.grid.shape), "setup_s": setup_s, **times,
-            "iterations": st["annular_iterations"],
-            "residual": max(st["annular_residuals"]), "tol": tol}
+            **plan_times, **common.host_stats(st), "tol": tol}
 
 
 # reference ledger (examples/multi_stokes_for_paper.py:249)
@@ -123,7 +143,7 @@ def main():
     cases = [tuple(int(v) for v in c.split(",")) for c in spec.split()]
     print("# " + common.TOL_RULE, flush=True)
     print(f"{'nb':>6} {'M':>3} {'dof':>9} {'err':>10} {'ref_err':>10} "
-          f"{common.TIME_HEAD}", flush=True)
+          f"{common.TIME_HEAD} {common.PLAN_HEAD}", flush=True)
     rows = []
     for nb, M in cases:
         row = run_case(nb, M, device=device)
@@ -131,7 +151,8 @@ def main():
         rows.append(row)
         ref = row["ref_err"]
         print(f"{nb:>6} {M:>3} {row['dof']:>9} {row['err']:>10.4e} "
-              f"{(f'{ref:.4e}' if ref else '-'):>10} {common.time_cols(row)}",
+              f"{(f'{ref:.4e}' if ref else '-'):>10} {common.time_cols(row)} "
+              f"{common.plan_cols(row)}",
               flush=True)
     from ipde_tpu_torch.utils.ledger import record
     record("stokes_refinement", rows, ("nb", "M"), device=device)

@@ -1,12 +1,14 @@
 """Entry points of the port: the counterparts of
 ``__graft_entry__.entry()`` and ``dryrun_multichip()``.
 
-``entry()`` returns ``(fn, args)``: ``fn(*args)`` runs one full interior
-Poisson solve (box FFT solve, annular GMRES, QFS coupling, layer potentials
-through the CUDA kernels) plus the Dirichlet BIE correction at nb=128, M=8
-on the card, and returns the corrected solution on the grid.  ipde_tpu's
-``planify`` (plan arrays as jit arguments) has no counterpart: the port
-runs eagerly.
+``entry()`` returns ``(fn, args)`` as ``__graft_entry__.entry()`` does:
+``fn`` is the ``inner`` of ``utils.planify.planified(step, solver, bie,
+capture=False)`` (ipde_tpu's ``jit=False``) and ``args`` are ``(plans,
+f_grid, f_radial)``; ``fn(*args)`` installs the plan tensors and runs one
+full interior Poisson solve (box FFT solve, annular GMRES, QFS coupling,
+layer potentials through the CUDA kernels) plus the Dirichlet BIE
+correction at nb=128, M=8 on the card, and returns the corrected solution
+on the grid.
 
 ``dryrun_multichip(n)`` runs one solve + BIE correction of the two-body
 problem (an interior boundary and a same-shape inclusion, nb=128, M=6)
@@ -60,11 +62,14 @@ def build_problem(nb: int = 128, M: int = 8, device=None,
 
 
 def entry(device=None):
-    """(fn, args): ``fn(f_grid, f_radial)`` is one full Poisson solve +
-    apply_bc (GMRES tol 1e-12, maxiter 60, restart 30) returning the grid
-    solution; ``args`` are the problem's forcing on ``device`` (None: the
-    card; raises without one)."""
+    """(fn, args): ``fn(plans, f_grid, f_radial)`` is one full Poisson
+    solve + apply_bc (GMRES tol 1e-12, maxiter 60, restart 30) with the
+    plan tensors ``plans`` installed, returning the grid solution; ``args``
+    are the plans of ``planified(step, solver, bie, capture=False)`` and
+    the problem's forcing, on ``device`` (None: the card; raises without
+    one)."""
     from ipde_tpu_torch.functions import EmbeddedFunction
+    from ipde_tpu_torch.utils.planify import planified
 
     solver, bie, f, bc = build_problem(device=device)
 
@@ -73,8 +78,9 @@ def entry(device=None):
                     maxiter=60, restart=30)
         return bie.apply_bc(ue, bc).grid
 
-    step.solver = solver
-    return step, (f.grid, f.radials[0])
+    run = planified(step, solver, bie, capture=False)
+    run.inner.solver = solver
+    return run.inner, (run.plans, f.grid, f.radials[0])
 
 
 def dryrun_multichip(n_devices: int, device=None):

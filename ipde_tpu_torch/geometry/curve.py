@@ -21,6 +21,11 @@ class BoundaryCurve:
     OUTWARD (right of the tangent direction).
     """
 
+    # ``dev``'s mirrors are a cache of the host arrays, filled by whichever
+    # setup asks first: utils/planify.py does not take them for plans (a
+    # solve path keeps its own device copies, made with its object)
+    _plan_caches = ("_dev",)
+
     def __init__(self, x: np.ndarray, y: np.ndarray):
         x = np.asarray(x, dtype=np.float64)
         y = np.asarray(y, dtype=np.float64)

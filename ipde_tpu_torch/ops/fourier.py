@@ -113,6 +113,15 @@ class FourierPlan2D:
         z = torch.fft.ifft(c, dim=-1)[..., ny0:ny0 + ny_out]
         return torch.fft.irfft(z, n=self.nx, dim=-2)[..., nx0:nx0 + nx_out, :]
 
+    def irfft2_real_window(self, c: torch.Tensor, rows: torch.Tensor,
+                           cols: torch.Tensor) -> torch.Tensor:
+        """irfft2_real_corner with the window given as index tensors: rows
+        of the nx axis and columns of the ny axis.  The same values; the
+        offsets live on the device, so a captured CUDA graph reads them
+        (``utils/planify.py``'s ``replan`` can move the window)."""
+        z = torch.fft.ifft(c, dim=-1).index_select(-1, cols)
+        return torch.fft.irfft(z, n=self.nx, dim=-2).index_select(-2, rows)
+
     def solve_symbol(self, f: torch.Tensor, symbol) -> torch.Tensor:
         """ifft2(fft2(f) * symbol).real for real f and a real symbol."""
         return self.ifft2_real(self.fft2(f) * symbol)

@@ -58,6 +58,12 @@ SPREAD_MATMUL_MB = 384.0
 # instead of inverted (1/(phx phy) would amplify transform roundoff into a
 # global ~1e-9 velocity floor through the k-weighted Stokes symbols)
 DECONV_CLIP = 1e-13
+# the longest piece of a row of the near-correction matrix, and the quantum
+# its row count of pieces is rounded up to: cuSPARSE's CSR product repeats
+# bit for bit on rows of up to 192 entries and not on 256 and more (NVIDIA
+# H100, tools/torch_csr_determinism.py; PERF.md, PR 12)
+CSR_ROW_CHUNK = 128
+CSR_ROW_QUANTUM = 4096
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +446,11 @@ class _EvaluatorBase:
             nzx = min(Px, -(-nzx // 32) * 32)
             nzy = min(Py, -(-nzy // 32) * 32)
         self.sx_cells, self.sy_cells = sx, sy
+        # the output window's rows and columns of the padded box, as
+        # tensors: they move with the sources, and a replanned CUDA graph
+        # must read them (utils/planify.py)
+        self._window = (torch.arange(grid.Nx, device=dev) + sx,
+                        torch.arange(grid.Ny, device=dev) + sy)
         self.spread_shape = (nzx, nzy)
         # the separable window factorizes the type-1 spread as
         #   spread[a, b] = sum_s (q_s Wx[s, a]) Wy[s, b] = Wx^T @ (q Wy)
@@ -541,18 +552,28 @@ class _EvaluatorBase:
         """The near corrections as one CSR matrix (n_out Nx Ny, n_in S):
         block (o, i, vals) puts vals[s, c] (an (S, P*P) patch array) at row
         o Nx Ny + cell[s, c], column i S + s, where ``mask`` holds and the
-        cell lies on the grid (``cell`` >= 0, see _patch_geometry).  Entries
-        of a row are ordered by column, so one sparse-dense product adds
-        every patch in a fixed order."""
-        keep = mask & (cell >= 0)
-        cells = cell[keep]
-        srcs = torch.arange(self.S, device=self.device)[:, None]\
-            .expand_as(keep)[keep]
+        cell lies on the grid (``cell`` >= 0, see _patch_geometry), and an
+        explicit zero everywhere else: at its own cell where the mask fails,
+        at a row of its own index mod Nx Ny where the cell is off the grid
+        (so that no row grows long).  The matrix thus has one entry per
+        block and patch cell whatever the geometry (``utils/planify.py``'s
+        ``replan`` copies a moved evaluator's matrix into a captured one of
+        the same number of entries).  Entries of a row are ordered by
+        column, so one sparse-dense product adds every patch in a fixed
+        order."""
         nc = self.grid.Nx * self.grid.Ny
+        keep = (mask & (cell >= 0)).reshape(-1)
+        flat = cell.reshape(-1)
+        cells = torch.where(flat >= 0, flat,
+                            torch.arange(flat.numel(), device=self.device)
+                            % nc)
+        srcs = torch.arange(self.S, device=self.device)[:, None]\
+            .expand_as(cell).reshape(-1)
         rows = torch.cat([o * nc + cells for o, _, _ in blocks])
         cols = torch.cat([i * self.S + srcs for _, i, _ in blocks])
-        vals = torch.cat([v[keep] for _, _, v in blocks])
-        order = torch.argsort(rows * (n_in * self.S) + cols)
+        vals = torch.cat([torch.where(keep, v.reshape(-1), 0.0)
+                          for _, _, v in blocks])
+        order = torch.argsort(rows * (n_in * self.S) + cols, stable=True)
         rows, cols, vals = rows[order], cols[order], vals[order]
         crow = torch.zeros(n_out * nc + 1, dtype=torch.int64,
                            device=self.device)
@@ -572,14 +593,64 @@ class _EvaluatorBase:
 
     def _inverse(self, c: torch.Tensor) -> torch.Tensor:
         """(n_out, Px, Py//2+1) spectra -> (n_out, Nx, Ny) grid fields."""
-        return self.fft_plan.irfft2_real_corner(
-            c, self.grid.Nx, self.grid.Ny, self.sx_cells, self.sy_cells)
+        return self.fft_plan.irfft2_real_window(c, *self._window)
+
+    def _set_patches(self, A):
+        """Keep the near-correction matrix A (``_patch_matrix``) and the
+        plan that applies it with the same bits every run: cuSPARSE's CSR
+        product does not repeat bit for bit once rows pass ~200 entries
+        (tools/torch_csr_determinism.py), so each row is cut into pieces of
+        at most CSR_ROW_CHUNK entries, the rows of a second CSR matrix over
+        the same entries (``_patch_pieces``, its row count rounded up to
+        CSR_ROW_QUANTUM so that a moved evaluator keeps its shape), and the
+        pieces of a row are added in order through ``_patch_rows``, the
+        (rows, most pieces) table of their indices (an absent piece points
+        past the last, at a zero).  ``_patches`` gives A back from them."""
+        self._patch_crow = A.crow_indices()
+        self._patch_shape = tuple(A.shape)
+        crow = A.crow_indices().to(torch.int64)
+        lens = crow.diff()
+        pieces = (lens + CSR_ROW_CHUNK - 1) // CSR_ROW_CHUNK
+        first = pieces.cumsum(0) - pieces          # a row's first piece
+        n_pieces = int(pieces.sum())
+        rows_p = -(-max(n_pieces, 1) // CSR_ROW_QUANTUM) * CSR_ROW_QUANTUM
+        # each entry's piece: its row's first piece + its place in the row
+        row_of = torch.repeat_interleave(torch.arange(lens.numel(),
+                                                      device=crow.device),
+                                         lens)
+        place = torch.arange(A._nnz(), device=crow.device) - crow[row_of]
+        piece = first[row_of] + place // CSR_ROW_CHUNK
+        pcrow = torch.zeros(rows_p + 1, dtype=torch.int64, device=crow.device)
+        pcrow[1:] = torch.bincount(piece, minlength=rows_p).cumsum(0)
+        with warnings.catch_warnings():   # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            self._patch_pieces = torch.sparse_csr_tensor(
+                pcrow.to(A.crow_indices().dtype), A.col_indices(),
+                A.values(), size=(rows_p, A.shape[1]),
+                check_invariants=False)
+        k = torch.arange(max(int(pieces.max()), 1), device=crow.device)
+        self._patch_rows = torch.where(k[None, :] < pieces[:, None],
+                                       first[:, None] + k[None, :], rows_p)
+
+    @property
+    def _patches(self):
+        """The near-correction matrix (``_patch_matrix``), on the entries
+        ``_patch_pieces`` holds."""
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            return torch.sparse_csr_tensor(
+                self._patch_crow, self._patch_pieces.col_indices(),
+                self._patch_pieces.values(), size=self._patch_shape,
+                check_invariants=False)
 
     def _apply_patches(self, fields: torch.Tensor,
                        q: torch.Tensor) -> torch.Tensor:
         """fields (n_out, Nx, Ny) plus the near corrections of the source
-        vector q (n_in S,)."""
-        return fields + (self._patches @ q).reshape(fields.shape)
+        vector q (n_in S,): ``_patches @ q``, summed piece by piece in a
+        fixed order (``_set_patches``)."""
+        y = self._patch_pieces @ q
+        y = torch.cat([y, y.new_zeros(1)])[self._patch_rows].sum(1)
+        return fields + y.reshape(fields.shape)
 
 
 class FreespaceGridEvaluator(_EvaluatorBase):
@@ -643,9 +714,9 @@ class FreespaceGridEvaluator(_EvaluatorBase):
             cache_key=("fs", kernel, float(kappa), float(eta)),
             device=self.device)
         rs = torch.where(mask, rr, 1.0)
-        self._patches = self._patch_matrix(
+        self._set_patches(self._patch_matrix(
             cell, mask, [(0, 0, torch.where(mask, gfun(rs) - T(rs), 0.0))],
-            1, 1)
+            1, 1))
 
     def _multiply(self, F: torch.Tensor) -> torch.Tensor:
         """(1, ...) source spectrum -> (1, ...) potential spectrum."""
@@ -730,8 +801,8 @@ class PeriodicGridEvaluator(_EvaluatorBase):
                 / (2 * np.pi) - T(rs)
             self.mean_shift = 0.0
         self.mult = symf(self.kk_half) * self.deconv_half
-        self._patches = self._patch_matrix(
-            cell, mask, [(0, 0, torch.where(mask, corr, 0.0))], 1, 1)
+        self._set_patches(self._patch_matrix(
+            cell, mask, [(0, 0, torch.where(mask, corr, 0.0))], 1, 1))
 
     def __call__(self, q: torch.Tensor) -> torch.Tensor:
         """q: (S,) weighted charges -> (Nx, Ny) zero-mean periodic potential
@@ -835,11 +906,11 @@ class StokesFreespaceGridEvaluator(_EvaluatorBase):
         # + CB2 dx dy wfy, v += CB2 dx dy wfx + (CA + CB2 dy^2) wfy,
         # p += CP (dx wfx + dy wfy)
         uv = CB2 * dx * dy
-        self._patches = self._patch_matrix(
+        self._set_patches(self._patch_matrix(
             cell, mask,
             [(0, 0, CA + CB2 * dx * dx), (0, 1, uv), (1, 0, uv),
              (1, 1, CA + CB2 * dy * dy), (2, 0, CP * dx), (2, 1, CP * dy)],
-            3, 2)
+            3, 2))
 
     def _multiply(self, F: torch.Tensor) -> torch.Tensor:
         """(2, ...) force spectra (x, y) -> (3, ...) spectra of u, v, p."""

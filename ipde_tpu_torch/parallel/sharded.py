@@ -47,6 +47,10 @@ class Mesh:
     it.  ``size`` is the number of shards, ``physical`` the number of
     distinct devices."""
 
+    # attributes that cache tensors derived from plans (utils/planify.py
+    # does not take them for plans)
+    _plan_caches = ("boundary_groups",)
+
     def __init__(self, devices: Sequence):
         self.devices = tuple(canonical_device(d) for d in devices)
         if not self.devices:

@@ -18,8 +18,8 @@ residual rows = [PDE rows (M-2) ; lbc row ; ubc row], matching the RHS
 Several annuli of one (M, n) solve as one batch (``batched_annular_solve``):
 their operator bundles are stacked on a leading axis and one lockstep GMRES
 (``ops.gmres.batched_gmres``) applies all B matvecs and preconditioners in
-each call, with one host sync per iteration for the batch.  With a mesh the
-batch is split along the boundary axis into per-device groups
+each call, with one host read per chunk of iterations for the batch.  With a
+mesh the batch is split along the boundary axis into per-device groups
 (``shard_boundary_axis``).
 """
 
@@ -170,9 +170,11 @@ def batched_annular_solve(solvers, metrics, rhss, tol: float = 1e-12,
     over its devices (``shard_boundary_axis``): each group's matvec and
     preconditioner run on its device, the Krylov basis, Hessenberg and host
     sync stay on the right-hand sides' device.  Returns (list of (M, n)
-    solutions, {'iterations': [B ints], 'residual': [B floats]}); raises as
-    ``solve_with_stats`` does when a system's true residual ends above
-    tol."""
+    solutions, {'iterations': [B 0-d int64 tensors], 'residual': [B 0-d
+    float64 tensors]}, on the right-hand sides' device); raises as
+    ``solve_with_stats`` does when a system's true residual ends above tol,
+    once GMRES has read it on the host (at every replay of a planified
+    call)."""
     M, n = solvers[0].M, solvers[0].n
     b = torch.stack([r.reshape(-1) for r in rhss])
     mv, pc = lockstep_maps([s.make_ops(m) for s, m in zip(solvers, metrics)],
@@ -181,11 +183,30 @@ def batched_annular_solve(solvers, metrics, rhss, tol: float = 1e-12,
                            b.device)
     res = batched_gmres(mv, b, precond=pc, tol=tol, maxiter=maxiter,
                         restart=restart)
-    for s, it, r in zip(solvers, res.iterations, res.residual):
-        s.iterations_last_call = it
-        check_converged("annular", r, it, tol, maxiter, restart)
+    res.on_host(lambda its, rs: converged_all("annular", solvers, its, rs,
+                                              tol, maxiter, restart))
     return ([x.reshape(M, n) for x in res.x],
-            {"iterations": res.iterations, "residual": res.residual})
+            {"iterations": list(res.iterations),
+             "residual": list(res.residual)})
+
+
+def finish_solve(solver, label: str, it: int, r: float, tol: float,
+                 maxiter: int, restart: int, verbose: bool):
+    """The host end of one annular solve: the solver's
+    ``iterations_last_call``, the verbose line, ``check_converged``."""
+    solver.iterations_last_call = it
+    if verbose:
+        print(f"{label} GMRES: {it} iters, resid {r:.2e}")
+    check_converged(label, r, it, tol, maxiter, restart)
+
+
+def converged_all(label: str, solvers, iterations, residuals, tol: float,
+                  maxiter: int, restart: int):
+    """The host end of a lockstep solve: each solver's
+    ``iterations_last_call``, then ``check_converged`` on each system."""
+    for s, it, r in zip(solvers, iterations, residuals):
+        s.iterations_last_call = it
+        check_converged(label, r, it, tol, maxiter, restart)
 
 
 class AnnularScalarSolver:
@@ -264,23 +285,22 @@ class AnnularScalarSolver:
     def solve_with_stats(self, metric: AnnularMetric, f, g_lb, g_ub,
                          tol: float = 1e-12, maxiter: int = 200,
                          restart: int = 40, verbose: bool = False):
-        """Like solve, also returning {'iterations', 'residual'}; raises
-        when GMRES ends with its true residual ||b - A u|| / ||b|| above
-        tol.  That residual has a float64 floor of a few 1e-14 at typical
-        sizes (measured 3e-14 at nb=400, M=16), so the default tol is 1e-12
-        where ipde_tpu, which never checks it, defaults to 1e-14."""
+        """Like solve, also returning {'iterations', 'residual'} (0-d
+        tensors on the solver's device); raises when GMRES ends with its
+        true residual ||b - A u|| / ||b|| above tol.  ``iterations_last_call``
+        and the check are set from the host read at the end of GMRES, so
+        each replay of a planified call updates and checks them too.  That
+        residual has a float64 floor of a few 1e-14 at typical sizes
+        (measured 3e-14 at nb=400, M=16), so the default tol is 1e-12 where
+        ipde_tpu, which never checks it, defaults to 1e-14."""
         ops = self.make_ops(metric)
         rhs = self.build_rhs(f, g_lb, g_ub)
         M, n = self.M, self.n
         res = gmres(lambda v: _matvec(ops, v, M, n), rhs.reshape(-1),
                     precond=lambda v: _precond(ops, v, M, n), tol=tol,
                     maxiter=maxiter, restart=restart)
-        self.iterations_last_call = res.iterations
-        if verbose:
-            print(f"annular GMRES: {res.iterations} iters, "
-                  f"resid {res.residual:.2e}")
-        check_converged("annular", res.residual, res.iterations, tol,
-                        maxiter, restart)
+        res.on_host(lambda it, r: finish_solve(self, "annular", it, r, tol,
+                                               maxiter, restart, verbose))
         return res.x.reshape(M, n), {"iterations": res.iterations,
                                      "residual": res.residual}
 

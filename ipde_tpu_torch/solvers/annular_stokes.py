@@ -34,7 +34,8 @@ from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
 from ipde_tpu_torch.ops.fourier import (TanPlan, make_tan_plan, tan_deriv,
                                         tan_irfft, tan_rfft)
 from ipde_tpu_torch.ops.gmres import batched_gmres, gmres
-from ipde_tpu_torch.solvers.annular_scalar import (check_converged,
+from ipde_tpu_torch.solvers.annular_scalar import (converged_all,
+                                                   finish_solve,
                                                    lockstep_maps)
 
 
@@ -125,8 +126,8 @@ def batched_stokes_solve(solvers, metrics, rhss, tol: float = 1e-12,
     rhss: flat right-hand sides from AnnularStokesSolver.build_rhs.  With a
     ``mesh`` the boundary axis is split over its devices, as in
     ``batched_annular_solve``.  Returns (list of (ur, ut, p_full) triples,
-    {'iterations': [B ints], 'residual': [B floats]}); raises as
-    ``solve_with_stats`` does."""
+    {'iterations': [B 0-d tensors], 'residual': [B 0-d tensors]}); raises
+    as ``solve_with_stats`` does."""
     M, n = solvers[0].M, solvers[0].n
     b = torch.stack(rhss)
     mv, pc = lockstep_maps([s.make_ops(m) for s, m in zip(solvers, metrics)],
@@ -135,11 +136,11 @@ def batched_stokes_solve(solvers, metrics, rhss, tol: float = 1e-12,
                            b.device)
     res = batched_gmres(mv, b, precond=pc, tol=tol, maxiter=maxiter,
                         restart=restart)
-    for s, it, r in zip(solvers, res.iterations, res.residual):
-        s.iterations_last_call = it
-        check_converged("annular Stokes", r, it, tol, maxiter, restart)
+    res.on_host(lambda its, rs: converged_all(
+        "annular Stokes", solvers, its, rs, tol, maxiter, restart))
     return ([s.split(x) for s, x in zip(solvers, res.x)],
-            {"iterations": res.iterations, "residual": res.residual})
+            {"iterations": list(res.iterations),
+             "residual": list(res.residual)})
 
 
 class AnnularStokesSolver:
@@ -271,12 +272,8 @@ class AnnularStokesSolver:
         res = gmres(lambda v: _matvec(ops, v, M, n), rhs,
                     precond=lambda v: _precond(ops, v, M, n), tol=tol,
                     maxiter=maxiter, restart=restart)
-        self.iterations_last_call = res.iterations
-        if verbose:
-            print(f"annular Stokes GMRES: {res.iterations} iters, "
-                  f"resid {res.residual:.2e}")
-        check_converged("annular Stokes", res.residual, res.iterations, tol,
-                        maxiter, restart)
+        res.on_host(lambda it, r: finish_solve(
+            self, "annular Stokes", it, r, tol, maxiter, restart, verbose))
         return self.split(res.x), {"iterations": res.iterations,
                                    "residual": res.residual}
 

@@ -58,6 +58,16 @@ def _radial_plans(src_list, ebdyc, dev):
             for e in ebdyc]
 
 
+def _device_mirrors(src_list, dev):
+    """The source curves' x, y and weights on ``dev``, held by the BIE:
+    made with it, so that ``utils/planify.py``'s plan store finds them, and
+    not cached on the curves, which the collection shares with the next
+    step's objects."""
+    return [{name: torch.as_tensor(getattr(src, name), dtype=torch.float64,
+                                   device=dev).contiguous()
+             for name in ("x", "y", "weights")} for src in src_list]
+
+
 def _bie_backend(n: int, device) -> str:
     """The BIE build backend: ``IPDE_BIE_BACKEND=host|device`` overrides,
     else ``qfs.auto_backend(n, device)`` (n: the smallest boundary)."""
@@ -107,6 +117,7 @@ class _ScalarBIE:
         all of ``self.src_list`` (grid_backend "fft"), or the physical grid
         points (pna + in-annulus) for the kernel ("dense")."""
         self.radial_plans = _radial_plans(self.src_list, ebdyc, dev)
+        self.src_dev = _device_mirrors(self.src_list, dev)
         self.grid_eval = None
         if self.solver.grid_backend == "fft":
             self.grid_eval = self.solver._make_grid_evaluator(
@@ -132,13 +143,12 @@ class _ScalarBIE:
         solver = self.solver
         if self.grid_eval is not None:
             phi = self.grid_eval(torch.cat([
-                sig * src.dev(sig.device)["weights"]
-                for src, sig in zip(self.src_list, sigmas)]))
+                sig * d["weights"] for d, sig in zip(self.src_dev, sigmas)]))
             new_grid = ue.grid + torch.where(self.ebdyc.phys_dev, phi, 0.0)
         else:
             grid_vals = torch.zeros_like(self.phys_x)
-            for src, sig in zip(self.src_list, sigmas):
-                grid_vals = grid_vals + solver._apply(src, sig, self.phys_x,
+            for d, sig in zip(self.src_dev, sigmas):
+                grid_vals = grid_vals + solver._apply(d, sig, self.phys_x,
                                                       self.phys_y)
             new_grid = ue.grid.reshape(-1).index_add(0, self.phys_flat,
                                                      grid_vals)\
@@ -148,14 +158,14 @@ class _ScalarBIE:
         # it) every source at once onto each ravelled radial grid (the
         # helpers' radial_tx, radial_ty), sharded
         new_radials = list(ue.radials)
-        for j, (src, sig) in enumerate(zip(self.src_list, sigmas)):
+        for j, (d, sig) in enumerate(zip(self.src_dev, sigmas)):
             for i, (r, h) in enumerate(zip(new_radials, solver.helpers)):
                 if solver._mesh is None:
                     v = self.radial_plans[i][j].apply(
                         lambda sx, sy, ws, f, tx, ty: solver._apply_raw(
                             sx, sy, sig[::f] * ws, tx, ty))
                 else:
-                    v = solver._apply(src, sig, h.radial_tx, h.radial_ty)\
+                    v = solver._apply(d, sig, h.radial_tx, h.radial_ty)\
                         .reshape(r.shape)
                 new_radials[i] = r + v
         return EmbeddedFunction(new_grid, new_radials)
@@ -368,6 +378,7 @@ class StokesDirichletBIE:
                                     build_u2s=False, device=dev)
                          for e, src in zip(ebdyc, self.src_list)]
         self.radial_plans = _radial_plans(self.src_list, ebdyc, dev)
+        self.src_dev = _device_mirrors(self.src_list, dev)
         self.grid_eval = None
         if solver.grid_backend == "fft":
             self.grid_eval = solver._make_grid_evaluator(
@@ -396,8 +407,8 @@ class StokesDirichletBIE:
             sigmas.append(q([t]) if e.interior else q([t, t]))
         # weighted force components per source curve
         forces = []
-        for src, sig in zip(self.src_list, sigmas):
-            w = src.dev(ebdyc.device)["weights"]
+        for src, d, sig in zip(self.src_list, self.src_dev, sigmas):
+            w = d["weights"]
             forces.append((sig[:src.N] * w, sig[src.N:] * w))
         # onto all physical grid points and every radial grid
         if self.grid_eval is not None:
@@ -408,8 +419,7 @@ class StokesDirichletBIE:
                      for f, g in zip((u, v, p), fields)]
         else:
             vals = [torch.zeros_like(self.phys_x) for _ in range(3)]
-            for src, (wfx, wfy) in zip(self.src_list, forces):
-                d = src.dev(ebdyc.device)
+            for d, (wfx, wfy) in zip(self.src_dev, forces):
                 vals = [a + b for a, b in zip(vals, sk.stokes_slp_apply(
                     d["x"], d["y"], wfx, wfy, self.phys_x, self.phys_y))]
             grids = [f.grid.reshape(-1).index_add(0, self.phys_flat, g)

@@ -130,14 +130,19 @@ class _ScalarHelper:
         self.annular_solver.make_ops(self.metric)   # warm the ops cache
         self.zero_bc = torch.zeros(ebdy.bdy.N, dtype=torch.float64,
                                    device=dev)
-        self.iterations_last_call = 0
+
+    @property
+    def iterations_last_call(self) -> int:
+        """The GMRES iterations of this boundary's last annular solve (its
+        annular solver's; set from the host read at the end of GMRES, at
+        every replay of a planified call too)."""
+        return self.annular_solver.iterations_last_call
 
     def solve_and_densities(self, fr, bv, bx, by, tol, maxiter, restart):
         """Annular solve + QFS densities (reference: internals/scalar.py:68-94)."""
         ur, stats = self.annular_solver.solve_with_stats(
             self.metric, fr, self.zero_bc, self.zero_bc, tol=tol,
             maxiter=maxiter, restart=restart)
-        self.iterations_last_call = self.annular_solver.iterations_last_call
         sigma_g, sigma_r = self.densities(ur, bv, bx, by)
         return ur, sigma_g, sigma_r, stats
 
@@ -252,7 +257,13 @@ class ScalarSolver:
                                         ebdyc.all_interface_y_dev])
         self._mesh = None
         self._one_device = Mesh([self.device])
-        self.iteration_counts = []
+
+    @property
+    def iteration_counts(self):
+        """Per boundary, the GMRES iterations of the last solve (reference:
+        multi_boundary/scalar.py:102), as ints: read on the host at the end
+        of each GMRES, at every replay of a planified call too."""
+        return [h.iterations_last_call for h in self.helpers]
 
     @property
     def _shards(self) -> Mesh:
@@ -313,6 +324,9 @@ class ScalarSolver:
         raise NotImplementedError
 
     def _apply(self, src_curve, density, tx, ty):
+        """The kernel apply of ``density`` on the curve ``src_curve`` (or
+        on a dict of its device x, y and weights) at (tx, ty), over
+        ``_shards``."""
         raise NotImplementedError
 
     def _apply_raw(self, sx, sy, weighted, tx, ty):
@@ -340,9 +354,12 @@ class ScalarSolver:
     def solve_with_stats(self, f: EmbeddedFunction, tol: float = 1e-12,
                          maxiter: int = 200, restart: int = 40,
                          verbose: bool = False):
-        """Full solve, also returning {'annular_iterations': [B ints],
-        'annular_residuals': [B floats]} (reference analogue:
-        iteration_counts, multi_boundary/scalar.py:102).  The annular solves
+        """Full solve, also returning {'annular_iterations': [B 0-d int64
+        tensors], 'annular_residuals': [B 0-d float64 tensors]} on the
+        solver's device, for the caller to read after the call (reference
+        analogue: iteration_counts, multi_boundary/scalar.py:102).  Once
+        warm, the solve makes no host sync and no host-to-device copy but
+        GMRES's status reads (``ops/gmres.py``).  The annular solves
         raise when GMRES ends with its true residual above tol (see
         AnnularScalarSolver.solve_with_stats for the default of 1e-12)."""
         ebdyc = self.ebdyc
@@ -373,8 +390,6 @@ class ScalarSolver:
                 [h.metric for h in self.helpers],
                 [h.annular_rhs(fr) for h, fr in zip(self.helpers, f.radials)],
                 tol, maxiter, restart, self._shards)
-            for h, it in zip(self.helpers, bstats["iterations"]):
-                h.iterations_last_call = it
             sig_gs, sig_rs = map(list, zip(*(
                 h.densities(ur, bv, bx, by)
                 for h, ur, bv, bx, by in zip(self.helpers, urs, bvl, bxl,
@@ -395,7 +410,6 @@ class ScalarSolver:
                                             for s in stats_list],
                      "annular_residuals": [s["residual"]
                                            for s in stats_list]}
-        self.iteration_counts = list(stats["annular_iterations"])
         if verbose:
             print("annular iterations:", self.iteration_counts)
         # global layer evaluation onto pna + interfaces
@@ -467,7 +481,8 @@ class PoissonSolver(ScalarSolver):
         return forms_dev.laplace_slp_naive_dev(src, tx, ty, device=self.device)
 
     def _apply(self, src_curve, density, tx, ty):
-        d = src_curve.dev(self.device)
+        d = src_curve if isinstance(src_curve, dict) else \
+            src_curve.dev(self.device)
         return sharded_laplace_slp_apply(self._shards, d["x"], d["y"],
                                          density * d["weights"], tx, ty)
 
@@ -536,7 +551,8 @@ class ModifiedHelmholtzSolver(ScalarSolver):
                                           device=self.device)
 
     def _apply(self, src_curve, density, tx, ty):
-        d = src_curve.dev(self.device)
+        d = src_curve if isinstance(src_curve, dict) else \
+            src_curve.dev(self.device)
         return sharded_mh_slp_apply(self._shards, d["x"], d["y"],
                                     density * d["weights"], tx, ty, self.k)
 

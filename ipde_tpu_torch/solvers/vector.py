@@ -151,7 +151,6 @@ class _StokesHelper:
         self.annular_solver.make_ops(self.metric)   # warm the ops cache
         self.zero_bc = torch.zeros(ebdy.bdy.N, dtype=torch.float64,
                                    device=dev)
-        self.iterations_last_call = 0
 
     # -- coordinate conversions (reference: embedded_boundary.py:521-530) ----
     def uv_to_rt(self, fu, fv):
@@ -201,6 +200,13 @@ class _StokesHelper:
         sigma_r = self.qfs_r([taus, taud])
         return (ur, vr, pr), sigma_g, sigma_r
 
+    @property
+    def iterations_last_call(self) -> int:
+        """The GMRES iterations of this boundary's last annular solve (its
+        annular solver's; set from the host read at the end of GMRES, at
+        every replay of a planified call too)."""
+        return self.annular_solver.iterations_last_call
+
     def solve_and_densities(self, fur, fvr, bu, bv, btxx, btxy, btyy,
                             tol, maxiter, restart):
         fr, ft = self.uv_to_rt(fur, fvr)
@@ -208,7 +214,6 @@ class _StokesHelper:
         uvp_rt, stats = self.annular_solver.solve_with_stats(
             self.metric, fr, ft, z, z, z, z, tol=tol, maxiter=maxiter,
             restart=restart)
-        self.iterations_last_call = self.annular_solver.iterations_last_call
         uvp, sigma_g, sigma_r = self.densities(uvp_rt, bu, bv, btxx, btxy,
                                                btyy)
         return uvp, sigma_g, sigma_r, stats
@@ -308,7 +313,6 @@ class StokesSolver:
                                         ebdyc.all_interface_y_dev])
         self._mesh = None
         self._one_device = Mesh([self.device])
-        self.iteration_counts = []
 
     def use_mesh(self, mesh):
         """Shard over ``mesh`` (a ``parallel.sharded.Mesh`` whose lead is
@@ -320,6 +324,13 @@ class StokesSolver:
         box FFT solve and the FFT grid evaluators stay on ``mesh.lead``
         (cuFFT on one card)."""
         self._mesh = check_lead(mesh, self.device)
+
+    @property
+    def iteration_counts(self):
+        """Per boundary, the GMRES iterations of the last solve (reference:
+        multi_boundary/scalar.py:102), as ints: read on the host at the end
+        of each GMRES, at every replay of a planified call too."""
+        return [h.iterations_last_call for h in self.helpers]
 
     @property
     def _shards(self) -> Mesh:
@@ -349,9 +360,12 @@ class StokesSolver:
     def solve_with_stats(self, fu: EmbeddedFunction, fv: EmbeddedFunction,
                          tol: float = 1e-12, maxiter: int = 200,
                          restart: int = 50, verbose: bool = False):
-        """Full Stokes solve, also returning {'annular_iterations': [ints],
-        'annular_residuals': [floats]}.  The annular solve raises when GMRES
-        ends with its true residual above tol."""
+        """Full Stokes solve, also returning {'annular_iterations': [0-d
+        int64 tensors], 'annular_residuals': [0-d float64 tensors]} on the
+        solver's device, read by the caller after the call.  Once warm, the
+        solve makes no host sync and no host-to-device copy but GMRES's
+        status reads.  The annular solve raises when GMRES ends with its
+        true residual above tol."""
         ebdyc = self.ebdyc
         plan = ebdyc.fft_plan
         fuc = ebdyc.demean_function(fu.grid * ebdyc.grid_step_dev)
@@ -391,8 +405,6 @@ class StokesSolver:
                 [h.annular_rhs(fur, fvr) for h, fur, fvr in
                  zip(self.helpers, fu.radials, fv.radials)],
                 tol, maxiter, restart, self._shards)
-            for h, it in zip(self.helpers, bstats["iterations"]):
-                h.iterations_last_call = it
             uvps, sig_gs, sig_rs = map(list, zip(*(
                 h.densities(uvp_rt, *d)
                 for h, uvp_rt, d in zip(self.helpers, uvp_rts, ifc_data))))
@@ -412,7 +424,6 @@ class StokesSolver:
                                             for s in stats_list],
                      "annular_residuals": [s["residual"]
                                            for s in stats_list]}
-        self.iteration_counts = list(stats["annular_iterations"])
         if verbose:
             print("annular Stokes iterations:", self.iteration_counts)
         # merged sigma_g evaluation onto pna + interfaces

@@ -160,7 +160,7 @@ phase prints its seconds):
          each; the lockstep GMRES over stokes_3body's two inclusions with
          its boundary axis split over the mesh against the unsharded one
          (iterations equal, within 1e-12 of max |x|);
-       - dryrun_multichip(MESH_SHARDS): finite, its launches counted;
+       - (dryrun_multichip runs in phase 11, captured);
        - a mesh of the card and the CPU in turns (a CPU shard takes the
          plain version), so that one card shows every copy to a shard's
          device and every gather: the four sharded applies at the
@@ -204,7 +204,29 @@ phase prints its seconds):
      four kernels captured alone in a CUDA graph at its merged main-path
      shape: the replay within 1e-12 (relative) of the plain version and
      bit-equal to the eager launch, the replayed launch timed.
- 11. print the kernels' JSON line, the card's name and power limit, then
+ 11. planified solves under the mesh (utils/planify.py over
+     parallel/sharded.py): phase 8's mesh (MESH_SHARDS shards round-robin
+     over the cards torch sees) on the fft solvers and BIEs of phase 10
+     (stokes_tier1, poisson_nb1200, mh_dirichlet_k2, stokes_3body): each
+     planified unsharded, then under the mesh against its eager mesh
+     solve: every field within TOL_PLANIFY of its max (bit-equal fields
+     counted), iterations equal, the problem's error limit; the launches
+     of the planified mesh call's first run (every count set to 0 just
+     before it: warm-up, capture, one replay) and the launches its graphs
+     replay (planify.launch_book); every launch the capture recorded held,
+     after that replay, to the plain version on the inputs the replay left
+     (TOL_KERNEL_REL); WARM_RUNS warm solves of the planified mesh, eager
+     mesh and planified unsharded calls in alternating turns (median,
+     min, max); device ms, kernels and idle share of 3 replays
+     (torch.profiler); host waits per solve; graphs and pool bytes per
+     card.  Then the two-body problem of dryrun_multichip planified under
+     the mesh and replanned onto its inclusion turned by REPLAN_TURN (the
+     lockstep GMRES split along its boundary axis), each replay held to its
+     solver's eager mesh solve (TOL_PLANIFY); then dryrun_multichip
+     (MESH_SHARDS), captured (it raises unless its two calls are finite
+     and bit-equal), its launches counted.  The replays must launch
+     laplace_slp, stokes_slp and mh_slp.
+ 12. print the kernels' JSON line, the card's name and power limit, then
      the device JSON line last.
 Phases 2-8 build their setups with the backend qfs.auto_backend picks: on
 the card "device" from qfs.DEVICE_MIN boundary points (forms born on the
@@ -250,6 +272,7 @@ counted per branch and weighted by the pairs of the timed inputs that fall
 in each (counted on the card with the plain code's z).
 """
 
+import contextlib
 import json
 import math
 import os
@@ -386,6 +409,15 @@ SETUP_NEUMANN = (2.0, 300, 12, 5e-9)
 SETUP_FORM_TOL = 1e-12
 # phase 10: planified against eager, of each field's max
 TOL_PLANIFY = 1e-13
+# phase 11: the problems planified under the mesh (SHARED keys and printed
+# labels), and how far the replan check turns the two-body problem's
+# inclusion (every plan shape stays, plan values change:
+# tests/test_torch_planify_mesh.py)
+PLANIFY_MESH = (("stokes_tier1", "stokes_tier1"),
+                ("poisson", "poisson_nb1200"),
+                ("mh_dirichlet_k2", "mh_dirichlet_k2"),
+                ("stokes_3body", "stokes_3body"))
+REPLAN_TURN = 0.01
 # what earlier phases leave for phases 7-9 to reuse (collections, errors)
 SHARED = {}
 
@@ -2825,7 +2857,6 @@ def mesh_mixed(K, SK, counters, holds):
 def mesh_phase(K, SK, counters):
     """Phase 8 (see the module docstring); returns (main-path launches by
     kernel, max abs difference from the plain version by kernel)."""
-    from ipde_tpu_torch.entry import dryrun_multichip
     from ipde_tpu_torch.parallel.sharded import make_mesh
     t_phase = time.perf_counter()
     cards = torch.cuda.device_count()
@@ -2846,19 +2877,6 @@ def mesh_phase(K, SK, counters):
         for name, e in held.items():
             errs[name] = max(errs[name], e)
     mesh_lockstep(mesh)
-    for c in counters.values():
-        c.launches = 0
-    t0 = time.perf_counter()
-    grid, physical = dryrun_multichip(MESH_SHARDS)
-    torch.cuda.synchronize()
-    got = {name: c.launches for name, c in counters.items()}
-    print(f"# mesh dryrun_multichip({MESH_SHARDS}): grid {tuple(grid.shape)}"
-          f", finite, physical {physical}, {time.perf_counter() - t0:.2f} s "
-          f"(setup included), launches {got}", flush=True)
-    if got["laplace_slp"] <= 0:
-        raise RuntimeError("dryrun_multichip launched no laplace_slp")
-    for name, n in got.items():
-        launches[name] += n
     mesh_mixed(K, SK, counters, holds)
     print(f"# phase 8 {time.perf_counter() - t_phase:.2f} s", flush=True)
     return launches, errs
@@ -3079,12 +3097,12 @@ def setup_phase(K, SK, counters):
     return launches, errs
 
 
-def planify_problem(label, solver, bie, data, check, counters):
-    """One problem planified against eager (see the module docstring's
-    phase 10).  Returns the launches of the planified run by kernel."""
+def plan_step(solver, bie, data):
+    """(fn, args, as_fields) of one problem's solve + apply_bc as a
+    planified call takes it: ``fn(*args)`` -> (every output field's grid
+    and radials, stats), ``as_fields`` the flat fields back as the solve's
+    EmbeddedFunctions."""
     from ipde_tpu_torch.functions import EmbeddedFunction
-    from ipde_tpu_torch.ops.gmres import LockstepGmres
-    from ipde_tpu_torch.utils.planify import planified
     stokes = isinstance(data[0], tuple)
     nb = len(solver.helpers)
     kw = dict(tol=GMRES_TOL, maxiter=100, restart=30)
@@ -3112,6 +3130,25 @@ def planify_problem(label, solver, bie, data, check, counters):
         efs = [EmbeddedFunction(flat[i], list(flat[i + 1:i + n]))
                for i in range(0, len(flat), n)]
         return efs if stokes else efs[0]
+    return fn, args, as_fields
+
+
+def field_match(got, want):
+    """(max over fields of max |got - want| / max |want| (the absolute
+    difference where a field is 0), fields bit-equal)."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        gap, scale = float((g - w).abs().max()), float(w.abs().max())
+        worst = max(worst, gap / scale if scale > 0 else gap)
+    return worst, sum(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def planify_problem(label, solver, bie, data, check, counters):
+    """One problem planified against eager (see the module docstring's
+    phase 10).  Returns the launches of the planified run by kernel."""
+    from ipde_tpu_torch.ops.gmres import LockstepGmres
+    from ipde_tpu_torch.utils.planify import planified
+    fn, args, as_fields = plan_step(solver, bie, data)
 
     def eager():
         out = fn(*args)
@@ -3143,14 +3180,11 @@ def planify_problem(label, solver, bie, data, check, counters):
     first_s = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     cap = run.captured
-    gaps = [float((g - w).abs().max()) for g, w in zip(got, want)]
-    scales = [float(w.abs().max()) for w in want]
-    equal = sum(torch.equal(g, w) for g, w in zip(got, want))
+    worst, equal = field_match(got, want)
     its = [int(v) for v in st["annular_iterations"]]
     wits = [int(v) for v in wst["annular_iterations"]]
     resid = max(float(v) for v in st["annular_residuals"])
     err, limit, text = check(solver.ebdyc, as_fields(got))
-    worst = max(g / sc if sc > 0 else g for g, sc in zip(gaps, scales))
     print(f"# planify {label}: planified vs eager max |diff| / max|field| "
           f"{worst:.3e} (tol {TOL_PLANIFY:.0e}; {equal} of {len(got)} fields "
           f"bit-equal), iterations {its} (eager {wits}), residual "
@@ -3323,7 +3357,7 @@ def planify_phase(K, SK, counters):
     launches = {name: 0 for name in counters}
     for label in ("poisson", "stokes_tier1", "mh_dirichlet_k2",
                   "stokes_3body"):
-        got = planify_problem(label, *SHARED.pop(f"planify {label}"),
+        got = planify_problem(label, *SHARED[f"planify {label}"],
                               counters)
         for name, n in got.items():
             launches[name] += n
@@ -3335,6 +3369,277 @@ def planify_phase(K, SK, counters):
           flush=True)
     return launches, errs
 
+
+
+# ---------------------------------------------------------------------------
+# phase 11: planified solves under the mesh
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def captured_launches(holds):
+    """While the block runs, each kernel of ``holds`` (kernel_holds)
+    wrapped to keep (arguments, output) of every launch made while a
+    planify capture records: the launches its graphs replay.  Yields
+    {kernel name: [(args, output)]}.  Each stand-in carries its wrapper's
+    launch count (the wrapper counts through its module-level name)."""
+    from ipde_tpu_torch.utils.planify import recording
+    calls = {name: [] for name in holds}
+    patched = []
+    for name, (module, attr, *_) in holds.items():
+        orig = getattr(module, attr)
+
+        def wrapped(*args, orig=orig, name=name):
+            out = orig(*args)
+            if recording() is not None:
+                calls[name].append((args, out))
+            return out
+
+        wrapped.launches, wrapped.__name__ = orig.launches, orig.__name__
+        setattr(module, attr, wrapped)
+        patched.append((module, attr, orig, wrapped))
+    try:
+        yield calls
+    finally:
+        for module, attr, orig, wrapped in patched:
+            setattr(module, attr, orig)
+            orig.launches = wrapped.launches
+
+
+def hold_replayed(label, calls, holds):
+    """Every launch a capture recorded (captured_launches), after one
+    replay of its graphs: the output the replay wrote against the plain
+    version on the inputs the replay left (TOL_KERNEL_REL).  Returns the
+    max abs difference by kernel."""
+    torch.cuda.synchronize()
+    errs = {}
+    for name, got in calls.items():
+        if not got:
+            continue
+        _, _, plain, err, _ = holds[name]
+        diffs = [err(out, plain(*args)) for args, out in got]
+        shapes = {(next(t for t in reversed(a)
+                        if isinstance(t, torch.Tensor)).shape[0],
+                   a[0].shape[0]) for a, _ in got}
+        worst = max(r for _, r in diffs)
+        errs[name] = max(a for a, _ in diffs)
+        print(f"# planify mesh {label}: {len(got)} {name} launches replayed "
+              f"({len(shapes)} distinct (T, S): {sorted(shapes)}), against "
+              f"the plain version on the replay's inputs max_abs="
+              f"{errs[name]:.3e} max_rel={worst:.3e} (tol "
+              f"{TOL_KERNEL_REL:.0e})", flush=True)
+        if not worst <= TOL_KERNEL_REL:
+            raise RuntimeError(f"planify mesh {label}: a replayed {name} "
+                               f"launch disagrees with the plain version: "
+                               f"{worst:.3e}")
+    return errs
+
+
+def book_delta(before):
+    """{kernel wrapper: (launches captured, launches replayed)} since the
+    planify.launch_book() reading ``before``."""
+    from ipde_tpu_torch.utils.planify import launch_book
+    return {n: (c - before[n][0], r - before[n][1])
+            for n, (c, r) in launch_book().items()}
+
+
+def planify_mesh_problem(label, mesh, solver, bie, data, check, counters,
+                         holds):
+    """One problem of phase 11 (see the module docstring).  Returns (the
+    launches of the planified mesh call's first run by kernel, max abs
+    difference of its replayed launches from the plain version by kernel,
+    replayed launches by wrapper)."""
+    from ipde_tpu_torch.ops.gmres import LockstepGmres
+    from ipde_tpu_torch.utils.planify import launch_book, planified
+    fn, args, as_fields = plan_step(solver, bie, data)
+    solver.use_mesh(None)
+    run_u = planified(fn, solver, bie)
+    run_u(*args)
+    solver.use_mesh(mesh)
+    want, wst = fn(*args)
+    torch.cuda.synchronize()
+    book = launch_book()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    with captured_launches(holds) as calls:
+        run = planified(fn, solver, bie)
+        got, st = run(*args)
+        torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    replayed = book_delta(book)
+    errs = hold_replayed(label, calls, holds)
+    del calls
+    worst, equal = field_match(got, want)
+    its = [int(v) for v in st["annular_iterations"]]
+    wits = [int(v) for v in wst["annular_iterations"]]
+    err, limit, text = check(solver.ebdyc, as_fields(got))
+    print(f"# planify mesh {label}: planified vs eager mesh max |diff| / "
+          f"max|field| {worst:.3e} (tol {TOL_PLANIFY:.0e}; {equal} of "
+          f"{len(got)} fields bit-equal), iterations {its} (eager {wits}), "
+          f"{text}, launches {launches}, (captured, replayed) {replayed}",
+          flush=True)
+    if not worst <= TOL_PLANIFY:
+        raise RuntimeError(f"planify mesh {label}: planified differs from "
+                           f"the eager mesh solve by {worst:.3e}")
+    if its != wits:
+        raise RuntimeError(f"planify mesh {label}: iterations {its} != "
+                           f"{wits}")
+    if not (math.isfinite(err) and err <= limit):
+        raise RuntimeError(f"planify mesh {label}: error {err:.4e} > "
+                           f"{limit:.4e}")
+    if sum(launches.values()) <= 0:
+        raise RuntimeError(f"planify mesh {label}: no kernel launched")
+    runs = {"planified mesh": lambda: run(*args),
+            "eager mesh": lambda: fn(*args),
+            "planified unsharded": lambda: run_u(*args)}
+    order, warm = list(runs), {k: [] for k in runs}
+    for i in range(WARM_RUNS):
+        for k in order[i % 3:] + order[:i % 3]:
+            t0 = time.perf_counter()
+            runs[k]()
+            torch.cuda.synchronize()
+            warm[k].append(time.perf_counter() - t0)
+    reads0 = LockstepGmres.host_reads
+    run(*args)
+    torch.cuda.synchronize()
+    reads = LockstepGmres.host_reads - reads0
+    wall, busy, idle, kern = profile_device(lambda: run(*args), kernels=True)
+    cap = run.captured
+    pools = ", ".join(f"{d} {b / 2**20:.1f} MiB"
+                      for d, b in cap.pool_bytes_by_card.items())
+    print(f"# planify mesh {label}: first call {first_s:.3f} s (warm-up + "
+          f"capture {cap.capture_s:.3f} s + replay); warm in turns: "
+          + "; ".join(f"{k} {warm_text(v)}" for k, v in warm.items())
+          + f"; 3 replays profiled (profiler on): wall {wall:.3f} ms, device "
+          f"{busy:.3f} ms, {kern:.0f} kernels, idle share {idle:.3f} per "
+          f"solve; host waits per solve {reads}; {cap.recorder.n_graphs} "
+          f"graphs ({run_u.captured.recorder.n_graphs} unsharded), plan "
+          f"{cap.plan_bytes / 2**20:.1f} MiB, pool per card: {pools}",
+          flush=True)
+    solver.use_mesh(None)
+    return launches, errs, {n: r for n, (_, r) in replayed.items()}
+
+
+def two_body_problem(dev, rot):
+    """entry.build_problem's two-body Poisson problem (nb=128, M=6, the
+    geometry of dryrun_multichip) on ``dev``, its inclusion turned by
+    ``rot``: (solver, BIE, forcing, boundary data)."""
+    from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
+    from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
+    from ipde_tpu_torch.geometry.curve import star
+    from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
+    from ipde_tpu_torch.solvers.bie import DirichletBIE
+    from ipde_tpu_torch.solvers.scalar import PoissonSolver
+    nb, M = 128, 6
+    bdy = star(nb, a=0.1, f=3)
+    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
+    inc = star(nb, x=0.0, y=0.0, r=0.22, a=0.05, f=4, rot=rot)
+    ebdyc = EmbeddedBoundaryCollection(
+        [EmbeddedBoundary(bdy, True, M, bh, qfs_tolerance=1e-12),
+         EmbeddedBoundary(inc, False, M, bh, qfs_tolerance=1e-12)],
+        device=dev)
+    ebdyc.generate_grid(bh)
+    solver = PoissonSolver(ebdyc)
+    return (solver, DirichletBIE(solver),
+            EmbeddedFunction.from_function(ebdyc, frc),
+            BoundaryFunction.from_function(ebdyc, sol))
+
+
+def planify_mesh_replan(mesh, counters):
+    """The two-body problem planified under ``mesh``, then replanned onto
+    the problem rebuilt with its inclusion turned by REPLAN_TURN (the
+    lockstep GMRES split along its boundary axis): each replay held to its
+    solver's eager mesh solve (TOL_PLANIFY).  Returns the launches of the
+    planified call (warm-up, capture and both replays) by kernel."""
+    from ipde_tpu_torch.utils.planify import planified, replan
+    problems = [two_body_problem(mesh.lead, rot)
+                for rot in (0.0, REPLAN_TURN)]
+    steps, wants = [], []
+    for solver, bie, f, bc in problems:
+        solver.use_mesh(mesh)
+        fn, args, _ = plan_step(solver, bie, (f, bc))
+        steps.append((fn, args))
+        wants.append(fn(*args)[0])
+    groups = len(mesh.boundary_groups[2])
+    for c in counters.values():
+        c.launches = 0
+    run = planified(steps[0][0], *problems[0][:2], problems[0][3])
+    got = [run(*steps[0][1])[0]]
+    replan(run, *problems[1][:2], problems[1][3])
+    got.append(run(*steps[1][1])[0])
+    torch.cuda.synchronize()
+    launches = {name: c.launches for name, c in counters.items()}
+    matches = [field_match(g, w) for g, w in zip(got, wants)]
+    moved = max(float((a - b).abs().max()) for a, b in zip(*wants))
+    print(f"# planify mesh replan: two-body Poisson (nb=128, M=6; "
+          f"{groups} boundary groups on the mesh) replanned onto its "
+          f"inclusion turned by {REPLAN_TURN} (the rebuilt solve moves a "
+          f"field by up to {moved:.3e}): replay vs eager mesh max |diff| / "
+          f"max|field| before {matches[0][0]:.3e}, after {matches[1][0]:.3e}"
+          f" (tol {TOL_PLANIFY:.0e}; {matches[1][1]} of {len(got[1])} fields"
+          f" bit-equal after), launches {launches}", flush=True)
+    if not (moved > 0 and all(m[0] <= TOL_PLANIFY for m in matches)):
+        raise RuntimeError("planify mesh replan: the replay does not give "
+                           "the rebuilt solver's eager mesh solve")
+    for solver, *_ in problems:
+        solver.use_mesh(None)
+    return launches
+
+
+def planify_mesh_phase(K, SK, counters):
+    """Phase 11 (see the module docstring); returns (launches by kernel,
+    max abs difference of the replayed launches from the plain version by
+    kernel)."""
+    from ipde_tpu_torch.entry import dryrun_multichip
+    from ipde_tpu_torch.parallel.sharded import make_mesh
+    from ipde_tpu_torch.utils.planify import launch_book
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    mesh = make_mesh(devices=[torch.device("cuda", i % cards)
+                              for i in range(MESH_SHARDS)])
+    print(f"# planify mesh: {mesh.size} shards round-robin over {cards} "
+          f"card(s): physical {mesh.physical}, {mesh}", flush=True)
+    holds = kernel_holds(K, SK)
+    launches = {name: 0 for name in counters}
+    errs = {name: 0.0 for name in counters}
+    replayed = {}
+    for key, label in PLANIFY_MESH:
+        got, held, rep = planify_mesh_problem(
+            label, mesh, *SHARED.pop(f"planify {key}"), counters, holds)
+        for name, n in got.items():
+            launches[name] += n
+        for name, e in held.items():
+            errs[name] = max(errs[name], e)
+        for name, n in rep.items():
+            replayed[name] = replayed.get(name, 0) + n
+        torch.cuda.empty_cache()
+    for name, n in planify_mesh_replan(mesh, counters).items():
+        launches[name] += n
+    for c in counters.values():
+        c.launches = 0
+    book = launch_book()
+    t0 = time.perf_counter()
+    grid, physical = dryrun_multichip(MESH_SHARDS)
+    torch.cuda.synchronize()
+    got = {name: c.launches for name, c in counters.items()}
+    print(f"# planify mesh dryrun_multichip({MESH_SHARDS}): captured, two "
+          f"calls bit-equal and finite, grid {tuple(grid.shape)}, physical "
+          f"{physical}, {time.perf_counter() - t0:.2f} s (setup included), "
+          f"launches {got}, (captured, replayed) {book_delta(book)}",
+          flush=True)
+    if got["laplace_slp"] <= 0:
+        raise RuntimeError("dryrun_multichip launched no laplace_slp")
+    for name, n in got.items():
+        launches[name] += n
+    print(f"# planify mesh: launches replayed by the four problems' "
+          f"planified mesh calls {replayed}", flush=True)
+    missing = [n for n in ("laplace_slp_apply", "stokes_slp_apply",
+                           "mh_slp_apply") if not replayed.get(n)]
+    if missing:
+        raise RuntimeError(f"planify mesh: no replayed launch of {missing}")
+    print(f"# phase 11 {time.perf_counter() - t_phase:.2f} s", flush=True)
+    return launches, errs
 
 
 def main():
@@ -3399,11 +3704,16 @@ def main():
     for name, n in plan_launches.items():
         launches[name] += n
         errs[name] = max(errs[name], plan_errs[name])
+    # ---- phase 11: planified solves under the mesh ---------------------------
+    mesh_plan_launches, mesh_plan_errs = planify_mesh_phase(K, SK, counters)
+    for name, n in mesh_plan_launches.items():
+        launches[name] += n
+        errs[name] = max(errs[name], mesh_plan_errs[name])
     for entry in kernels:
         entry["launches"] += launches[entry["name"]]
         entry["max_abs_err"] = max(entry["max_abs_err"], errs[entry["name"]])
 
-    # ---- phase 11: results -------------------------------------------------
+    # ---- phase 12: results -------------------------------------------------
     print(f"# total {time.perf_counter() - t_start:.2f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

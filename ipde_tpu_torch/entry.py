@@ -15,9 +15,10 @@ problem (an interior boundary and a same-shape inclusion, nb=128, M=6)
 under ``use_mesh`` with a mesh of n shards (``parallel/sharded.py``):
 target-sharded layer potentials and the lockstep annular GMRES split along
 its boundary axis.  The shards go round-robin over the cards torch sees, so
-on one card all n shards share it; ``device="cpu"`` puts them all on the
-CPU.  ipde_tpu's virtual CPU devices (``_pin_cpu_mesh``) have no
-counterpart.
+on one card all n shards share it, and the step is planified (captured
+once, then replayed), as ipde_tpu jits it; ``device="cpu"`` puts them all
+on the CPU and runs the step eagerly.  ipde_tpu's virtual CPU devices
+(``_pin_cpu_mesh``) have no counterpart.
 """
 
 from __future__ import annotations
@@ -87,12 +88,18 @@ def dryrun_multichip(n_devices: int, device=None):
     """One sharded solve + apply_bc (GMRES tol 1e-10, maxiter 40, restart
     20) of the two-body problem (nb=128, M=6) on a mesh of ``n_devices``
     shards: round-robin over the CUDA cards torch sees (raises without
-    one), or all on ``device`` when given (e.g. ``"cpu"``).  Raises unless
-    the result is finite; returns (the grid solution, the number of
-    distinct devices of the mesh)."""
+    one), or all on ``device`` when given (e.g. ``"cpu"``).  On the cards
+    the step runs as ``planified(step, solver, bie)``, the counterpart of
+    ipde_tpu's ``jax.jit(step)`` under the mesh: a first call that
+    captures it and replays, then a replay; raises unless the two results
+    are finite and bit-equal.  On ``device`` it runs eagerly once; raises
+    unless the result is finite.  Returns (the grid solution, the number
+    of distinct devices of the mesh)."""
     import torch
 
+    from ipde_tpu_torch.functions import EmbeddedFunction
     from ipde_tpu_torch.parallel.sharded import make_mesh
+    from ipde_tpu_torch.utils.planify import planified
 
     if device is None:
         cards = torch.cuda.device_count()
@@ -106,7 +113,20 @@ def dryrun_multichip(n_devices: int, device=None):
     solver, bie, f, bc = build_problem(nb=128, M=6, device=mesh.lead,
                                        two_body=True)
     solver.use_mesh(mesh)
-    ue = bie.apply_bc(solver(f, tol=1e-10, maxiter=40, restart=20), bc)
-    if not bool(torch.isfinite(ue.grid).all()):
+
+    def step(f_grid, *f_radials):
+        ue = solver(EmbeddedFunction(f_grid, list(f_radials)), tol=1e-10,
+                    maxiter=40, restart=20)
+        return bie.apply_bc(ue, bc).grid
+
+    args = (f.grid, *f.radials)
+    if device is None:
+        run = planified(step, solver, bie)
+        grid, again = run(*args), run(*args)
+        if not torch.equal(grid, again):
+            raise RuntimeError("dryrun_multichip: two replays differ")
+    else:
+        grid = step(*args)
+    if not bool(torch.isfinite(grid).all()):
         raise RuntimeError("dryrun_multichip: the solution is not finite")
-    return ue.grid, mesh.physical
+    return grid, mesh.physical

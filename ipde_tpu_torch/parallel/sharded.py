@@ -20,10 +20,19 @@ sources, so shards may be ragged or empty (an empty shard launches nothing)
 and, unlike ``ipde_tpu``, nothing is padded to a multiple of the mesh size.
 Results are gathered on ``mesh.lead`` in shard order, and partial sums are
 added there in shard order: the same inputs give the same bits every run.
+
+With a card as lead, each card shard's copy-in, kernel and copy-out run on
+a stream of its own on its device (``run_shards``): the stream waits on an
+event recorded on the caller's stream, and the caller's stream waits on one
+recorded after the shard's work, before the gather or the sum.  That is the
+fork and join that CUDA stream capture takes, so ``utils/planify.py``
+captures the sharded applies into its graphs; eagerly, the shards of one
+card overlap.  CPU shards run in place, on the host.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import torch
@@ -106,16 +115,60 @@ def _split(a, n: int):
     return (a,) if n == 1 else torch.tensor_split(a, n)
 
 
-def _target_sharded(mesh: Mesh, apply, sources, tx, ty):
-    """apply(*sources, tx_shard, ty_shard) on each shard's device, the
-    results (a tensor or a tuple) gathered on the lead in shard order."""
-    parts = []
-    for dev, cx, cy in zip(mesh.devices, _split(tx, mesh.size),
-                           _split(ty, mesh.size)):
-        if cx.shape[0] == 0:
+# (device, slot) -> the stream of the slot-th shard job of a fork on that
+# card, made at first use and kept (a capture's warm-up makes them)
+_streams = {}
+
+
+def _shard_stream(device: torch.device, slot: int):
+    """The stream that job ``slot`` of a fork runs on, on ``device``."""
+    s = _streams.get((device, slot))
+    if s is None:
+        s = _streams[(device, slot)] = torch.cuda.Stream(device)
+    return s
+
+
+def run_shards(lead: torch.device, jobs):
+    """``[fn() for dev, fn in jobs]``, each ``fn`` run for the shard device
+    ``dev``.  With a card as ``lead``, each card job runs on a stream of its
+    own (one per card and slot, kept) forked from the caller's stream on the
+    lead, and the caller's stream joins every such stream before this
+    returns: what the jobs return is then ready on the caller's stream, and
+    a CUDA graph capture on the caller's stream takes the jobs' work.  CPU
+    jobs, and every job of a CPU lead, run in place."""
+    if lead.type != "cuda" or (len(jobs) == 1 and jobs[0][0] == lead):
+        return [fn() for _, fn in jobs]
+    caller = torch.cuda.current_stream(lead)
+    outs, forked = [], []
+    for slot, (dev, fn) in enumerate(jobs):
+        if dev.type != "cuda":
+            outs.append(fn())
             continue
+        s = _shard_stream(dev, slot)
+        s.wait_stream(caller)
+        with torch.cuda.stream(s):
+            outs.append(fn())
+        forked.append(s)
+    for s in forked:
+        caller.wait_stream(s)
+    return outs
+
+
+def _target_sharded(mesh: Mesh, apply, sources, tx, ty):
+    """apply(*sources, tx_shard, ty_shard) on each shard's device (a stream
+    of its own on a card, ``run_shards``), the results (a tensor or a
+    tuple) gathered on the lead in shard order."""
+    lead = mesh.lead
+
+    def job(dev, cx, cy):
         out = apply(*(s.to(dev) for s in sources), cx.to(dev), cy.to(dev))
-        parts.append(out if isinstance(out, tuple) else (out,))
+        return tuple(o.to(lead) for o in
+                     (out if isinstance(out, tuple) else (out,)))
+
+    parts = run_shards(lead, [
+        (dev, functools.partial(job, dev, cx, cy))
+        for dev, cx, cy in zip(mesh.devices, _split(tx, mesh.size),
+                               _split(ty, mesh.size)) if cx.shape[0] > 0])
     if not parts:       # no targets: the one-device call on the lead
         return apply(*sources, tx, ty)
     outs = tuple(gather([p[i] for p in parts], mesh.lead)
@@ -148,19 +201,26 @@ def sharded_stokes_slp_apply(mesh: Mesh, sx, sy, wfx, wfy, tx, ty):
 def source_sharded_laplace_slp_apply(mesh: Mesh, sx, sy, weighted_charge,
                                      tx, ty):
     """Source-sharded Laplace single layer: each shard sums its slice of
-    the sources at every target; the partial sums are added on the lead in
-    shard order (the counterpart of ``ipde_tpu``'s psum, without
+    the sources at every target (a stream of its own on a card,
+    ``run_shards``); the partial sums are added on the lead in shard order
+    after the join (the counterpart of ``ipde_tpu``'s psum, without
     atomics)."""
-    total = None
-    for dev, csx, csy, cq in zip(
-            mesh.devices, _split(sx, mesh.size), _split(sy, mesh.size),
-            _split(weighted_charge, mesh.size)):
-        if csx.shape[0] == 0:
-            continue
-        part = kernels.laplace_slp_apply(csx.to(dev), csy.to(dev),
+    lead = mesh.lead
+
+    def job(dev, csx, csy, cq):
+        return kernels.laplace_slp_apply(csx.to(dev), csy.to(dev),
                                          cq.to(dev), tx.to(dev),
-                                         ty.to(dev)).to(mesh.lead)
-        total = part if total is None else total + part
-    if total is None:   # no sources
+                                         ty.to(dev)).to(lead)
+
+    parts = run_shards(lead, [
+        (dev, functools.partial(job, dev, a, b, c))
+        for dev, a, b, c in zip(mesh.devices, _split(sx, mesh.size),
+                                _split(sy, mesh.size),
+                                _split(weighted_charge, mesh.size))
+        if a.shape[0] > 0])
+    if not parts:       # no sources
         return kernels.laplace_slp_apply(sx, sy, weighted_charge, tx, ty)
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
     return total

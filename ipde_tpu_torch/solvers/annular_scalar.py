@@ -26,6 +26,7 @@ mesh the batch is split along the boundary axis into per-device groups
 from __future__ import annotations
 
 import copy
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -35,7 +36,8 @@ from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
 from ipde_tpu_torch.ops.fourier import (TanPlan, make_tan_plan, tan_deriv,
                                         tan_irfft, tan_rfft)
 from ipde_tpu_torch.ops.gmres import batched_gmres, gmres
-from ipde_tpu_torch.parallel.sharded import Mesh, gather
+from ipde_tpu_torch.parallel.sharded import Mesh, gather, run_shards
+from ipde_tpu_torch.utils.planify import recording
 
 
 class AnnularOps(NamedTuple):
@@ -70,11 +72,27 @@ def stack_ops(ops_list: Sequence[NamedTuple]) -> NamedTuple:
             t = torch.stack(vals)
             out.append(t[:, None] if v.ndim == 1 else t)
         elif isinstance(v, float):
-            out.append(torch.tensor(vals, dtype=torch.float64,
-                                    device=first.D01.device)[:, None, None])
+            # filled on the device (no host copy: a CUDA graph capture
+            # takes it, the values fixed as a capture fixes any number)
+            out.append(torch.stack([
+                torch.full((1, 1), x, dtype=torch.float64,
+                           device=first.D01.device) for x in vals]))
         else:
             out.append(v)
     return type(first)(*out)
+
+
+def _ops_to(dev, ops: NamedTuple) -> NamedTuple:
+    """A bundle with its tensors (its ``TanPlan``'s included) on ``dev``."""
+    moved = []
+    for v in ops:
+        if isinstance(v, torch.Tensor):
+            v = v.to(dev)
+        elif isinstance(v, TanPlan) and v.ik.device != dev:
+            v = copy.copy(v)
+            v.ik = v.ik.to(dev)
+        moved.append(v)
+    return type(ops)(*moved)
 
 
 def shard_boundary_axis(mesh, ops_list: Sequence[NamedTuple]):
@@ -84,43 +102,51 @@ def shard_boundary_axis(mesh, ops_list: Sequence[NamedTuple]):
     empty groups dropped (B is not padded).  The counterpart of
     ``ipde_tpu``'s shard_boundary_axis.  The split of the last ``ops_list``
     is kept on the mesh, so a solver's every solve stacks and copies its
-    bundles once."""
+    bundles once.  Inside a planified capture (``planify.recording``) the
+    split is made anew and not kept: the captured stack and copies then
+    read the plan buffers, which ``replan`` refills, and no eager solve
+    reads a graph's memory."""
     key = tuple(map(id, ops_list))
     memo = mesh.boundary_groups
-    if memo is not None and memo[0] == key:
+    capturing = recording() is not None
+    if memo is not None and memo[0] == key and not capturing:
         return memo[2]
-    groups = []
-    for dev, rows in zip(mesh.devices,
-                         torch.tensor_split(torch.arange(len(ops_list)),
-                                            mesh.size)):
-        if rows.numel() == 0:
-            continue
-        ops = stack_ops([ops_list[i] for i in rows.tolist()])
-        moved = []
-        for v in ops:
-            if isinstance(v, torch.Tensor):
-                v = v.to(dev)
-            elif isinstance(v, TanPlan) and v.ik.device != dev:
-                v = copy.copy(v)
-                v.ik = v.ik.to(dev)
-            moved.append(v)
-        groups.append((dev, slice(int(rows[0]), int(rows[-1]) + 1),
-                       type(ops)(*moved)))
-    # the bundles are held with their ids, so no other list takes the key
-    mesh.boundary_groups = (key, list(ops_list), groups)
+    splits = [(dev, rows) for dev, rows in zip(
+        mesh.devices, torch.tensor_split(torch.arange(len(ops_list)),
+                                         mesh.size)) if rows.numel() > 0]
+    # each group's bundle stacked on the lead and copied to its device on
+    # the group's stream (a copy to another card inside a capture must run
+    # where the capture's fork reaches)
+    moved = run_shards(mesh.lead, [
+        (dev, functools.partial(_ops_to, dev, stack_ops(
+            [ops_list[i] for i in rows.tolist()])))
+        for dev, rows in splits])
+    groups = [(dev, slice(int(rows[0]), int(rows[-1]) + 1), ops)
+              for (dev, rows), ops in zip(splits, moved)]
+    if not capturing:
+        # the bundles are held with their ids, so no other list takes the
+        # key
+        mesh.boundary_groups = (key, list(ops_list), groups)
     return groups
 
 
 def lockstep_maps(ops_list: Sequence[NamedTuple], mesh, fns, lead):
     """For each ``fn(bundle, v)`` of ``fns`` the (B, N) -> (B, N) map that
     ``batched_gmres`` takes: group by group of ``shard_boundary_axis`` over
-    ``mesh`` (None: one group on ``lead``) on each group's device, gathered
-    on ``lead`` in group order (the Krylov basis, Hessenberg and host sync
-    stay on ``lead``)."""
+    ``mesh`` (None: one group on ``lead``) on each group's device, a card
+    group on a stream of its own (``parallel.sharded.run_shards``),
+    gathered on ``lead`` in group order after the join (the Krylov basis,
+    Hessenberg and host sync stay on ``lead``)."""
     groups = shard_boundary_axis(mesh or Mesh([lead]), ops_list)
-    return [lambda v, fn=fn: gather([fn(ops, v[rows].to(dev))
-                                     for dev, rows, ops in groups], lead)
-            for fn in fns]
+
+    def job(fn, v, dev, rows, ops):
+        return fn(ops, v[rows].to(dev)).to(lead)
+
+    def apply(fn, v):
+        return gather(run_shards(lead, [
+            (dev, functools.partial(job, fn, v, dev, rows, ops))
+            for dev, rows, ops in groups]), lead)
+    return [functools.partial(apply, fn) for fn in fns]
 
 
 def _matvec(ops: AnnularOps, u_flat: torch.Tensor, M: int,

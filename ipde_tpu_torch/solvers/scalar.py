@@ -124,9 +124,15 @@ class _ScalarHelper:
             self.radial_source, ebdy.radial_x, ebdy.radial_y,
             k_density=ebdy.bdy.N // 2, device=dev)
         # the ravelled radial grid: the targets of the mesh branches here
-        # and in the BIEs
+        # and in the BIEs; the radial source's nodes and weights, the
+        # sources of the mesh branch here (made with the helper, so that a
+        # planified solve takes them for plans: the curve's own mirrors
+        # are a cache that replan does not reach)
         self.radial_tx = f64(ebdy.radial_x.ravel())
         self.radial_ty = f64(ebdy.radial_y.ravel())
+        self.radial_src = {
+            name: f64(np.ascontiguousarray(getattr(self.radial_source, name)))
+            for name in ("x", "y", "weights")}
         self.annular_solver.make_ops(self.metric)   # warm the ops cache
         self.zero_bc = torch.zeros(ebdy.bdy.N, dtype=torch.float64,
                                    device=dev)
@@ -168,7 +174,7 @@ class _ScalarHelper:
         w = self.own_src_to_ifc @ sigma_g
         sigma_r_tot = sigma_r + self.qfs_r.u2s(bu - w)
         if solver._mesh is not None:
-            rslp = solver._apply(self.radial_source, sigma_r_tot,
+            rslp = solver._apply(self.radial_src, sigma_r_tot,
                                  self.radial_tx, self.radial_ty)
             return ur + rslp.reshape(ur.shape)
         rslp = self.radial_plan.apply(
@@ -323,10 +329,10 @@ class ScalarSolver:
     def _naive_form_device(self, src, tx, ty):
         raise NotImplementedError
 
-    def _apply(self, src_curve, density, tx, ty):
-        """The kernel apply of ``density`` on the curve ``src_curve`` (or
-        on a dict of its device x, y and weights) at (tx, ty), over
-        ``_shards``."""
+    def _apply(self, src, density, tx, ty):
+        """The kernel apply of ``density`` on a source curve at (tx, ty),
+        over ``_shards``; ``src`` holds the curve's x, y and weights on the
+        solver's device."""
         raise NotImplementedError
 
     def _apply_raw(self, sx, sy, weighted, tx, ty):
@@ -480,11 +486,9 @@ class PoissonSolver(ScalarSolver):
     def _naive_form_device(self, src, tx, ty):
         return forms_dev.laplace_slp_naive_dev(src, tx, ty, device=self.device)
 
-    def _apply(self, src_curve, density, tx, ty):
-        d = src_curve if isinstance(src_curve, dict) else \
-            src_curve.dev(self.device)
-        return sharded_laplace_slp_apply(self._shards, d["x"], d["y"],
-                                         density * d["weights"], tx, ty)
+    def _apply(self, src, density, tx, ty):
+        return sharded_laplace_slp_apply(self._shards, src["x"], src["y"],
+                                         density * src["weights"], tx, ty)
 
     def _apply_raw(self, sx, sy, weighted, tx, ty):
         return kernels.laplace_slp_apply(sx, sy, weighted, tx, ty)
@@ -550,11 +554,9 @@ class ModifiedHelmholtzSolver(ScalarSolver):
         return forms_dev.mh_slp_naive_dev(src, tx, ty, self.k,
                                           device=self.device)
 
-    def _apply(self, src_curve, density, tx, ty):
-        d = src_curve if isinstance(src_curve, dict) else \
-            src_curve.dev(self.device)
-        return sharded_mh_slp_apply(self._shards, d["x"], d["y"],
-                                    density * d["weights"], tx, ty, self.k)
+    def _apply(self, src, density, tx, ty):
+        return sharded_mh_slp_apply(self._shards, src["x"], src["y"],
+                                    density * src["weights"], tx, ty, self.k)
 
     def _apply_raw(self, sx, sy, weighted, tx, ty):
         return kernels.mh_slp_apply(sx, sy, weighted, tx, ty, self.k)

@@ -22,6 +22,15 @@ of the same shapes.  Here:
     graphs and loops in order and returns clones of the outputs.  With the
     plans on the CPU, ``call`` runs ``fn`` with the plans installed, as
     ipde_tpu's ``jit=False`` does;
+  * under ``use_mesh`` (a root holding a ``parallel.sharded.Mesh`` of
+    several shards) the capture takes the sharded applies and the split
+    lockstep GMRES too: each card shard's work runs on a stream of its own,
+    forked from the capturing stream and joined back into it
+    (``parallel.sharded.run_shards``), so it lands in the same graphs; the
+    graphs' memory is one pool per card of the mesh.  Every plan must lie
+    on a device of the mesh, and a mesh with CPU shards beside a card
+    raises (a CUDA graph cannot hold CPU work); a mesh of CPU shards runs
+    ``fn`` with the plans installed, as above;
   * ``replan(call, *roots)`` points ``call`` at a rebuilt object graph of
     the same structure: it checks every plan tensor's shape, dtype and
     device and copies the new values into ``call.plans``, so the captured
@@ -35,7 +44,7 @@ of the same shapes.  Here:
 What ``fn`` computes on the host (Python numbers, numpy arrays) is fixed at
 capture, as it is by ipde_tpu's trace; only tensors reachable from the
 roots are plans.  A capture that fails raises: there is no eager fallback
-on a card.  A planified solve under ``use_mesh`` is not supported.
+on a card.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import contextlib
 import importlib
 import threading
 import time
+import weakref
 from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
@@ -113,7 +123,7 @@ class PlanStore:
         self._slot_names: List[str] = []
         self._arrays: List[torch.Tensor] = []
         self._by_id = {}
-        self.meshes = []           # (owner path, shards) of multi-shard meshes
+        self.meshes = []       # (owner path, devices) of multi-shard meshes
         seen = set()
         for r in roots:
             self._walk(r, seen, type(r).__name__)
@@ -132,7 +142,7 @@ class PlanStore:
             container = obj.__dict__
             keys = [k for k in container if k not in skip]
             if type(obj).__name__ == "Mesh" and getattr(obj, "size", 1) > 1:
-                self.meshes.append((name, obj.size))
+                self.meshes.append((name, obj.devices))
             name = type(obj).__name__
         elif isinstance(obj, tuple):
             for item in obj:
@@ -322,12 +332,33 @@ def _map_tensors(fn, tree):
                                 for x in leaves])
 
 
+@contextlib.contextmanager
+def _pools_on(cards, pool):
+    """While a capture runs on another card: this thread's allocations on
+    ``cards`` (the mesh's other cards) go to the capture's pool there, so
+    that the graphs keep that memory."""
+    for d in cards:
+        torch._C._cuda_beginAllocateCurrentThreadToPool(d.index, pool)
+    try:
+        yield
+    finally:
+        for d in cards:
+            torch._C._cuda_endAllocateToPool(d.index, pool)
+
+
+def _release_pools(indices, pool):
+    for i in indices:
+        torch._C._cuda_releasePool(i, pool)
+
+
 class _Captured:
     """The CUDA side of a planified call: static buffers, the recorder and
-    what the capture measured."""
+    what the capture measured.  ``cards`` are the cards the capture spans
+    (the plans' card first)."""
 
-    def __init__(self, fn, store, roots, plans, args):
-        dev = plans[0].device if plans else _tensors(args)[0].device
+    def __init__(self, fn, store, roots, plans, args, cards):
+        dev = cards[0]
+        others = cards[1:]
         with torch.no_grad():
             self.plans = [p.clone() for p in plans]
             self.static_args = _map_tensors(lambda t: t.clone(), args)
@@ -341,12 +372,13 @@ class _Captured:
             with store.installed(self.plans):
                 fn(*self.static_args)        # the eager warm-up
             _check_no_growth(store, roots)
-            reserved = torch.cuda.memory_reserved(dev)
-            rec = _Recorder(torch.cuda.graph_pool_handle())
+            reserved = [torch.cuda.memory_reserved(d) for d in cards]
+            pool = torch.cuda.graph_pool_handle()
+            rec = _Recorder(pool)
             counts = _launch_counts()
             _active.recorder = rec
             try:
-                with store.installed(self.plans):
+                with _pools_on(others, pool), store.installed(self.plans):
                     rec.begin()
                     out = fn(*self.static_args)
                     rec.end()
@@ -360,7 +392,14 @@ class _Captured:
                                                      _launch_counts())])
         caller.wait_stream(side)
         self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        # the graphs' pool on each card, and in all
+        self.pool_bytes_by_card = {
+            str(d): torch.cuda.memory_reserved(d) - r
+            for d, r in zip(cards, reserved)}
+        self.pool_bytes = sum(self.pool_bytes_by_card.values())
+        if others:
+            weakref.finalize(self, _release_pools,
+                             [d.index for d in others], pool)
         self.recorder = rec
         self.out = out
 
@@ -390,15 +429,12 @@ def planified(fn: Callable, *roots, capture: bool = True):
     ``call.captured`` then holds the static buffers, the recorder and the
     capture's seconds and pool bytes.  Otherwise (plans on the CPU, or
     ``capture=False``, ipde_tpu's ``jit=False``) a call runs ``inner``.
-    Raises ValueError when a root holds a mesh of several shards
-    (``use_mesh``)."""
+    A root may hold a mesh of several shards (``use_mesh``): the capture
+    then spans the mesh's cards.  Raises ValueError (here, and at the first
+    call after a ``replan``) when the plans lie on several devices without
+    a mesh or off the mesh, and, with ``capture``, when a mesh puts CPU
+    shards beside a card."""
     store = PlanStore(*roots)
-    if store.meshes:
-        raise ValueError(
-            "planified: " + ", ".join(f"{n} holds a mesh of {s} shards"
-                                      for n, s in store.meshes)
-            + " (use_mesh): a planified solve under use_mesh is not "
-            "supported (ROADMAP Queue 1)")
 
     def inner(plan_arrays, *args):
         with store.installed(plan_arrays):
@@ -407,9 +443,12 @@ def planified(fn: Callable, *roots, capture: bool = True):
     def call(*args):
         first = call.calls == 0
         call.calls += 1
-        if call.captured is None and _on_card(call.plans, capture):
+        cards = [] if call.captured is not None else _capture_cards(
+            call.plans, store.meshes, capture)
+        if cards:
             # fn's objects are the roots': their slots take the copies
-            call.captured = _Captured(fn, store, roots, call.plans, args)
+            call.captured = _Captured(fn, store, roots, call.plans, args,
+                                      cards)
             call.plans = call.captured.plans
         if call.captured is not None:
             return call.captured(args)
@@ -423,6 +462,7 @@ def planified(fn: Callable, *roots, capture: bool = True):
     call.inner = inner
     call.captured = None
     call.calls = 0
+    _capture_cards(call.plans, store.meshes, capture)
     return call
 
 
@@ -440,15 +480,34 @@ def _check_no_growth(store, roots):
             "object is made")
 
 
-def _on_card(plans, capture: bool) -> bool:
+def _capture_cards(plans, meshes, capture: bool) -> list:
+    """The cards a capture of ``plans`` spans, the plans' card first (the
+    cards of the roots' meshes; ``meshes`` as ``PlanStore.meshes``), or []
+    when a call runs ``inner`` (plans and shards on the CPU, or no
+    ``capture``).  Raises ValueError when the plans lie on several devices
+    without a mesh or off the mesh, or when a mesh puts CPU shards beside a
+    card."""
     if not capture:
-        return False
+        return []
     devs = {p.device for p in plans}
-    if any(d.type == "cuda" for d in devs):
-        if len(devs) > 1:
-            raise ValueError(f"planified: plans on several devices {devs}")
-        return True
-    return False
+    shards = [(n, i, d) for n, ds in meshes for i, d in enumerate(ds)]
+    on_mesh = {d for _, _, d in shards}
+    cards = sorted({d for d in devs | on_mesh if d.type == "cuda"},
+                   key=lambda d: (d not in devs, d.index))
+    if not cards:
+        return []
+    cpu = [f"{n} shard {i}" for n, i, d in shards if d.type != "cuda"]
+    if cpu:
+        raise ValueError(
+            f"planified: {', '.join(cpu)} on the CPU beside "
+            f"{[str(d) for d in cards]}: a CUDA graph cannot hold CPU work")
+    if meshes and not devs <= on_mesh:
+        raise ValueError(f"planified: plans on {sorted(map(str, devs))}, "
+                         f"not all of them devices of the mesh "
+                         f"{sorted(map(str, on_mesh))}")
+    if len(devs) > 1 and not meshes:
+        raise ValueError(f"planified: plans on several devices {devs}")
+    return cards
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -489,8 +548,10 @@ def replan(call, *roots):
            if _spec(a) != _spec(b)]
     if bad:
         raise ValueError("replan: plan shape mismatch — " + "; ".join(bad))
-    if store.meshes:
-        raise ValueError("replan: the new graph holds a mesh (use_mesh)")
+    if [d for _, d in store.meshes] != [d for _, d in call.store.meshes]:
+        raise ValueError(
+            f"replan: the new graph's meshes {store.meshes} are not the "
+            f"planified call's {call.store.meshes}")
     if call.captured is not None:
         with torch.no_grad():
             for dst, src in zip(call.captured.plans, new):

@@ -148,14 +148,38 @@ def test_plan_store_collects_dedupes_and_restores(problem):
     assert all(a is b for a, b in zip(PlanStore(ts, tb).snapshot(), plans))
 
 
-def test_planified_refuses_a_mesh(problem):
-    ts, tb = problem["ts"], problem["tb"]
-    ts.use_mesh(Mesh(["cpu", "cpu"]))
+def test_planified_accepts_a_mesh(problem):
+    """A root holding a mesh of two CPU shards: the call runs with the
+    plans installed (bit-equal to the eager mesh solve), and replan onto a
+    rebuilt solver under the same mesh gives that solver's eager mesh
+    solve; replan onto a graph without the mesh raises, and so does a mesh
+    that puts a CPU shard beside a card."""
+    p = problem
+    ts, tb, tf, tbc = p["ts"], p["tb"], p["tf"], p["tbc"]
+    mesh = Mesh(["cpu", "cpu"])
+    ts.use_mesh(mesh)
+    ts2 = PoissonSolver(p["tc"], grid_backend="dense")
+    tb2 = DirichletBIE(ts2)
+    ts2.use_mesh(mesh)
     try:
-        with pytest.raises(ValueError, match="use_mesh"):
-            planified(lambda: None, ts, tb)
+        want = tb.apply_bc(ts(tf, **SOLVE), tbc)
+        run = planified(_step(ts, tb, tbc), ts, tb)
+        assert run.store.meshes == [("PoissonSolver._mesh", mesh.devices)]
+        g, _ = run(tf.grid, tf.radials[0])
+        assert torch.equal(g, want.grid) and run.captured is None
+        f2 = EmbeddedFunction.from_function(
+            p["tc"], lambda x, y: 2.0 * frc(x, y) + np.cos(y))
+        want2 = tb2.apply_bc(ts2(f2, **SOLVE), tbc)
+        assert replan(run, ts2, tb2) is run
+        g2, _ = run(f2.grid, f2.radials[0])
+        assert torch.equal(g2, want2.grid)
+        ts2.use_mesh(None)
+        with pytest.raises(ValueError, match="meshes"):
+            replan(run, ts2, tb2)
     finally:
         ts.use_mesh(None)
+    with pytest.raises(ValueError, match="shard 1 on the CPU"):
+        planified(lambda: None, Mesh(["cuda:0", "cpu"]))
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ from ipde_tpu_torch.geometry.grid import Grid
 from ipde_tpu_torch.ops.fd import fd_x_4, fd_xx_4, fd_y_4, fd_yy_4
 from ipde_tpu_torch.ops.fourier import FourierPlan1D, FourierPlan2D
 from ipde_tpu_torch.ops.interp import PolyInterpolator2D, make_interpolator
+from ipde_tpu_torch.utils.profiling import spanned
 
 
 def grid_inside_mask(bdy: BoundaryCurve, grid: Grid) -> np.ndarray:
@@ -148,6 +149,7 @@ class EmbeddedBoundaryCollection:
         return grid
 
     # ------------------------------------------------------------------
+    @spanned("geometry.register")
     def register_grid(self, grid: Grid, danger_zone_distance: float = 0.0,
                       verbose: bool = False,
                       pad_quantum: Optional[int] = None):
@@ -170,7 +172,14 @@ class EmbeddedBoundaryCollection:
         regs = [e.register_grid(grid, danger_zone_distance, verbose)
                 for e in self.ebdys]
         self.regs = regs
+        self._register_masks(grid, regs, pad_quantum)
+        self._register_plans(grid, regs, pad_quantum)
+        self.bumpy = None
 
+    @spanned("geometry.masks")
+    def _register_masks(self, grid, regs, pad_quantum):
+        """Masks, point sets and their device copies, the box's Fourier
+        operators."""
         # physical mask: intersection over boundaries; near-curve points are
         # classified exactly by the sign of their radial coordinate
         phys = np.ones(grid.shape, dtype=bool)
@@ -231,6 +240,10 @@ class EmbeddedBoundaryCollection:
             return tx, ty
         self.transf = transf
 
+    @spanned("geometry.plans")
+    def _register_plans(self, grid, regs, pad_quantum):
+        """The interface and radial-to-grid interpolation plans."""
+        transf = self.transf
         # interface interpolation plan (all interfaces concatenated)
         ifx = np.concatenate([e.interface.x for e in self.ebdys])
         ify = np.concatenate([e.interface.y for e in self.ebdys])
@@ -258,7 +271,6 @@ class EmbeddedBoundaryCollection:
                                      device=self.device)
             self.radial_to_grid_plans.append(plan)
             self.ia_flat_list.append(self._dev(ia_flat, torch.int64))
-        self.bumpy = None
 
     def phys_extremes(self) -> np.ndarray:
         """(K, 2) superset of the physical region's convex-hull vertices

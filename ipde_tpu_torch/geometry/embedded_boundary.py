@@ -25,9 +25,11 @@ from ipde_tpu_torch.geometry.grid import Grid
 from ipde_tpu_torch.ops.slepian import SlepianMollifier
 from ipde_tpu_torch.utils.cheb import (chebvander, chebyshev_differentiation_matrix,
                                  fejer_1_weights, get_chebyshev_nodes)
+from ipde_tpu_torch.utils.profiling import spanned
 
 
 class EmbeddedBoundary:
+    @spanned("geometry.boundary")
     def __init__(self, bdy: BoundaryCurve, interior: bool, M: int, h: float,
                  pad_zone: float = 0.0, slepian_r: Optional[float] = None,
                  coordinate_tolerance: float = 1e-14,
@@ -125,6 +127,7 @@ class EmbeddedBoundary:
     # ------------------------------------------------------------------
     # grid registration
     # ------------------------------------------------------------------
+    @spanned("geometry.coords")
     def register_grid(self, grid: Grid, danger_zone_distance: float = 0.0,
                       verbose: bool = False):
         """Locate grid points inside the annulus and compute their (t, r).

@@ -37,6 +37,7 @@ from typing import Callable, List, NamedTuple, Optional
 import torch
 
 from ipde_tpu_torch.utils.planify import recording
+from ipde_tpu_torch.utils.profiling import spanned
 
 # Arnoldi steps between two host reads.  A read costs a round trip to the
 # host; a step past convergence costs a matvec and a preconditioner on zero
@@ -264,6 +265,7 @@ class LockstepGmres:
         self.status[1 + B:] = self.resid
 
     # -- the host loop -------------------------------------------------------
+    @spanned("gmres.read")
     def read(self) -> List[float]:
         """The status vector on the host: by a non-blocking copy to pinned
         memory and an event on a card (no stream synchronize)."""

@@ -49,6 +49,7 @@ from ipde_tpu_torch.geometry.grid import Grid
 from ipde_tpu_torch.ops.fourier import FourierPlan2D
 from ipde_tpu_torch.ops.interp import _es_kernel
 from ipde_tpu_torch.ops.kernels import expint_e1, k0_split
+from ipde_tpu_torch.utils.profiling import spanned
 
 # the spread runs as one matmul of dense window factors, S x (nzx + nzy)
 # float64, up to this many MB; beyond it as an index_add_ scatter
@@ -668,6 +669,7 @@ class FreespaceGridEvaluator(_EvaluatorBase):
     Hankel-quadrature table (no 2D NUFFT in setup).
     """
 
+    @spanned("setup.evaluators")
     def __init__(self, grid: Grid, src_x, src_y, kernel: str = "laplace",
                  kappa: float = 1.0, pad: int = None, w: int = 16,
                  r_cut_h: float = 22.0, target_bounds=None,
@@ -750,6 +752,7 @@ class PeriodicGridEvaluator(_EvaluatorBase):
     card; raises without one).
     """
 
+    @spanned("setup.evaluators")
     def __init__(self, grid: Grid, src_x, src_y, kernel: str = "laplace",
                  kappa: float = 1.0, w: int = 16, r_cut_h: float = 22.0,
                  *, device=None):
@@ -829,6 +832,7 @@ class StokesFreespaceGridEvaluator(_EvaluatorBase):
 
     MARGIN_H = 80.0   # Hasimoto screen reaches further (see _EvaluatorBase)
 
+    @spanned("setup.evaluators")
     def __init__(self, grid: Grid, src_x, src_y, pad: int = None, w: int = 16,
                  r_cut_h: float = 22.0, target_bounds=None, target_hull=None,
                  *, device=None):

@@ -26,6 +26,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ipde_tpu_torch.utils.profiling import spanned
+
 
 class StratifiedRadialApply:
     """Plan for applying a kernel from a source curve to an (M, n) radial
@@ -39,6 +41,7 @@ class StratifiedRadialApply:
     device: where the plan's coordinate tensors live.
     """
 
+    @spanned("setup.radial_plans")
     def __init__(self, src, radial_x, radial_y, k_density: int,
                  exponent: float = 30.0, max_stride: int = 16,
                  min_points: int = 64, *, device):

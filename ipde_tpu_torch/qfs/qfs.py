@@ -32,6 +32,7 @@ import torch
 from ipde_tpu_torch.geometry.curve import BoundaryCurve
 from ipde_tpu_torch.ops import forms_dev as fd
 from ipde_tpu_torch.ops import singular as sq
+from ipde_tpu_torch.utils.profiling import spanned
 
 # the boundary size from which auto_backend builds the QFS and BIE systems
 # on a CUDA device (IPDE_QFS_DEVICE_MIN overrides it): the smallest size
@@ -184,6 +185,7 @@ class QFSEvaluator:
     ``u2s`` return the pointwise xi either way.
     """
 
+    @spanned("setup.qfs")
     def __init__(self, source: BoundaryCurve, curve: BoundaryCurve,
                  forms: Sequence, A, rcond: float = 1e-15,
                  build_u2s: bool = True, backend: str = "host", *, device):
@@ -258,6 +260,7 @@ def auto_backend(n: int, device) -> str:
     return "device" if n >= n_min else "host"
 
 
+@spanned("setup.qfs")
 def laplace_qfs(curve: BoundaryCurve, source: BoundaryCurve, interior: bool,
                 slp: bool = True, dlp: bool = True,
                 rcond: float = 1e-15, build_u2s: bool = True,
@@ -280,6 +283,7 @@ def laplace_qfs(curve: BoundaryCurve, source: BoundaryCurve, interior: bool,
                         backend=backend, device=device)
 
 
+@spanned("setup.qfs")
 def mh_qfs(curve: BoundaryCurve, source: BoundaryCurve, interior: bool,
            k: float, slp: bool = True, dlp: bool = True,
            rcond: float = 1e-15, build_u2s: bool = True,

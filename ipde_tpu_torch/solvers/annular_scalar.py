@@ -38,6 +38,7 @@ from ipde_tpu_torch.ops.fourier import (TanPlan, make_tan_plan, tan_deriv,
 from ipde_tpu_torch.ops.gmres import batched_gmres, gmres
 from ipde_tpu_torch.parallel.sharded import Mesh, gather, run_shards
 from ipde_tpu_torch.utils.planify import recording
+from ipde_tpu_torch.utils.profiling import spanned
 
 
 class AnnularOps(NamedTuple):
@@ -243,6 +244,7 @@ class AnnularScalarSolver:
     normal, i.e. d/dr of the radial coordinate).  Tensors live on ``device``.
     """
 
+    @spanned("setup.annular")
     def __init__(self, geom: AnnularGeometry, helmholtz_k: float = 0.0,
                  la: float = 1.0, lb_c: float = 0.0,
                  ua: float = 1.0, ub_c: float = 0.0, *, device):

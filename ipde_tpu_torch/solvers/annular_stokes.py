@@ -37,6 +37,7 @@ from ipde_tpu_torch.ops.gmres import batched_gmres, gmres
 from ipde_tpu_torch.solvers.annular_scalar import (converged_all,
                                                    finish_solve,
                                                    lockstep_maps)
+from ipde_tpu_torch.utils.profiling import spanned
 
 
 class StokesOps(NamedTuple):
@@ -152,6 +153,7 @@ class AnnularStokesSolver:
     ported (float64 is native on the GPU).
     """
 
+    @spanned("setup.annular")
     def __init__(self, geom: AnnularGeometry, mu: float = 1.0, *, device):
         self.geom = geom
         self.mu = float(mu)

@@ -36,6 +36,7 @@ from ipde_tpu_torch.ops.stratified import StratifiedRadialApply
 from ipde_tpu_torch.qfs.qfs import auto_backend
 from ipde_tpu_torch.solvers.scalar import ModifiedHelmholtzSolver, ScalarSolver
 from ipde_tpu_torch.solvers.vector import StokesSolver, stokes_qfs
+from ipde_tpu_torch.utils.profiling import spanned
 
 
 def _radial_plans(src_list, ebdyc, dev):
@@ -79,6 +80,7 @@ def _bie_backend(n: int, device) -> str:
     return auto_backend(n, device)
 
 
+@spanned("setup.bie.invert")
 def _invert_system(blocks, offs, backend: str, device):
     """Assemble the block BIE matrix and invert it: (A_dev, Ainv) on
     ``device``.  backend "device": the blocks are tensors on ``device``,
@@ -175,6 +177,7 @@ class DirichletBIE(_ScalarBIE):
     """Dense Dirichlet BIE for a ScalarSolver's boundary collection; its
     tensors live on the collection's device."""
 
+    @spanned("setup.bie")
     def __init__(self, solver: ScalarSolver):
         self.solver = solver
         ebdyc = solver.ebdyc
@@ -261,6 +264,7 @@ class NeumannBIE(_ScalarBIE):
     condition and the constant nullspace is pinned with a mean constraint.
     """
 
+    @spanned("setup.bie")
     def __init__(self, solver: ScalarSolver):
         self.solver = solver
         ebdyc = solver.ebdyc
@@ -342,6 +346,7 @@ class StokesDirichletBIE:
     for the interior boundary and [SLP, DLP] for an inclusion.
     """
 
+    @spanned("setup.bie")
     def __init__(self, solver: StokesSolver):
         self.solver = solver
         ebdyc = solver.ebdyc

@@ -63,6 +63,7 @@ from ipde_tpu_torch.qfs.qfs import (QFSEvaluator, auto_backend, laplace_qfs,
 from ipde_tpu_torch.solvers.annular_scalar import (
     AnnularModifiedHelmholtzSolver, AnnularPoissonSolver,
     batched_annular_solve)
+from ipde_tpu_torch.utils.profiling import spanned
 
 
 def _annular_donor(prev_helper, solver, ebdy):
@@ -454,6 +455,7 @@ class ScalarSolver:
 class PoissonSolver(ScalarSolver):
     """lap u = f (reference: ipde/solvers/multi_boundary/poisson.py)."""
 
+    @spanned("setup.solver")
     def __init__(self, ebdyc, **kw):
         if ebdyc.bumpy is None:
             ebdyc.ready_bump()
@@ -514,6 +516,7 @@ class ModifiedHelmholtzSolver(ScalarSolver):
     so ``f`` is the right-hand side of (k^2 - lap) u = f.
     """
 
+    @spanned("setup.solver")
     def __init__(self, ebdyc, k: float, **kw):
         self.k = float(k)
         super().__init__(ebdyc, **kw)

@@ -58,8 +58,10 @@ from ipde_tpu_torch.parallel.sharded import (Mesh, check_lead,
 from ipde_tpu_torch.qfs.qfs import QFSEvaluator, auto_backend
 from ipde_tpu_torch.solvers.annular_stokes import (AnnularStokesSolver,
                                                    batched_stokes_solve)
+from ipde_tpu_torch.utils.profiling import spanned
 
 
+@spanned("setup.qfs")
 def stokes_qfs(curve, source, interior: bool, slp: bool = True,
                dlp: bool = True, rcond: float = 1e-15,
                build_u2s: bool = True, backend: str = None, *,
@@ -259,6 +261,7 @@ class StokesSolver:
     is about 6.5e-14 here, so the default is 1e-12.
     """
 
+    @spanned("setup.solver")
     def __init__(self, ebdyc: EmbeddedBoundaryCollection,
                  grid_backend: str = "fft", helpers: Optional[List] = None,
                  solver_type: str = "spectral"):

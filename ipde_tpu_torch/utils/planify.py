@@ -58,6 +58,8 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
+from ipde_tpu_torch.utils.profiling import count, span, spanned
+
 # the kernel wrappers whose ``launches`` count a replay adds to: (module,
 # module-level name), read through the module so that a monkeypatched
 # wrapper carrying the attribute is counted
@@ -308,12 +310,14 @@ class _Recorder:
             if step[0] == "graph":
                 step[1].replay()
                 _add_launches(step[2], "replayed")
+                count("planify.graphs")
                 continue
             loop, phases = step[1], step[2]
 
             def run(i, phases=phases):
                 phases[i][0].replay()
                 _add_launches(phases[i][1], "replayed")
+                count("planify.graphs")
             loop.drive(lambda: run(0), lambda: run(1), lambda: run(2))
 
     @property
@@ -356,6 +360,7 @@ class _Captured:
     what the capture measured.  ``cards`` are the cards the capture spans
     (the plans' card first)."""
 
+    @spanned("planify.capture")
     def __init__(self, fn, store, roots, plans, args, cards):
         dev = cards[0]
         others = cards[1:]
@@ -369,7 +374,7 @@ class _Captured:
         side.wait_stream(caller)
         t0 = time.perf_counter()
         with torch.cuda.device(dev), torch.cuda.stream(side):
-            with store.installed(self.plans):
+            with span("planify.warmup"), store.installed(self.plans):
                 fn(*self.static_args)        # the eager warm-up
             _check_no_growth(store, roots)
             reserved = [torch.cuda.memory_reserved(d) for d in cards]
@@ -378,7 +383,8 @@ class _Captured:
             counts = _launch_counts()
             _active.recorder = rec
             try:
-                with _pools_on(others, pool), store.installed(self.plans):
+                with span("planify.record"), _pools_on(others, pool), \
+                        store.installed(self.plans):
                     rec.begin()
                     out = fn(*self.static_args)
                     rec.end()
@@ -403,6 +409,7 @@ class _Captured:
         self.recorder = rec
         self.out = out
 
+    @spanned("planify.replay")
     def __call__(self, args):
         if _flatten(args)[1] != self._arg_spec:
             raise ValueError("planified: the arguments' structure differs "
@@ -527,6 +534,7 @@ def _spec(t: torch.Tensor) -> str:
     return out
 
 
+@spanned("planify.replan")
 def replan(call, *roots):
     """Point a planified callable at a new object graph of the same
     structure, e.g. this step's solver rebuilt on moved geometry.

@@ -1,0 +1,12 @@
+"""ms per moving step in the program's ``setup.annular`` spans: the annular
+solvers' constructors (preconditioners and operators).  See ``_program_spans.py``."""
+
+from pathlib import Path
+
+from perfbench.harness.spec import load_module
+
+_shared = load_module(Path(__file__).with_name("_program_spans.py"), "metric")
+
+
+def read(rec):
+    return _shared.part_ms(rec, "setup.annular")

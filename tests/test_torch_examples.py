@@ -6,7 +6,7 @@ run_case; for the three-body Stokes row tools/ipde_tpu_three_body_stokes.py
 with the port's BIE radial plans, since ipde_tpu's own plans differ, on
 ipde_tpu's dense grid backend);
 ``record`` into a ledger under pytest's tmp_path only (the repo's
-LEDGER_TPU.json and LEDGER_TORCH.json are never touched); ``Timer``;
+LEDGER_TPU.json and LEDGER_TORCH.json are never touched); ``time_solves``;
 ``entry()`` against the analytic solution.  The warm solves of the scripts
 are cut to one here (their timings are not what is tested)."""
 
@@ -107,22 +107,14 @@ def test_record_merges_rows(tmp_path):
         assert list(json.load(fh)) == ["study@cpu"]
 
 
-def test_timer_and_sync(tmp_path):
-    from ipde_tpu_torch.utils.profiling import Timer, time_solves, trace
-    timer = Timer()
-    for _ in range(2):
-        out = []
-        with timer("phase", out):
-            out.append(torch.ones(3).sum())
-    assert timer.counts == {"phase": 2} and timer.totals["phase"] > 0
-    assert timer.report().startswith("phase: ")
+def test_timer_and_sync():
+    from ipde_tpu_torch.utils.profiling import sync, time_solves
     res, t = time_solves(lambda: torch.arange(4.0), warm=3)
     assert res.tolist() == [0.0, 1.0, 2.0, 3.0]
+    assert 0.0 < t["first_s"]
     assert t["solve_ms_min"] <= t["solve_ms"] <= t["solve_ms_max"]
-    path = tmp_path / "trace.json"
-    with trace(str(path)):
-        torch.ones(8).cumsum(0)
-    assert "traceEvents" in json.loads(path.read_text())
+    sync([res, {"a": res}])     # CPU tensors: nothing to wait for
+    sync()
 
 
 def test_entry_on_cpu():

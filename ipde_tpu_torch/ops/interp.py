@@ -2,8 +2,10 @@
 
 The framework's NUFFT replacement (the reference calls finufft's type-2
 transform: radial->grid, grid->interface, grid->points; SURVEY.md section
-2.2).  The targets are geometry-static, so each plan precomputes on the host
-what its device apply needs.
+2.2).  The targets are geometry-static, so each plan precomputes what its
+device apply needs: window weights, indices and deconvolution tables on the
+host, and the trigonometric phase matrices (``phase_matrix``) on the plan's
+device from the (T,) target coordinates.
 
 ``make_interpolator`` keeps the routing of ``ipde_tpu.ops.interp``, so both
 packages give a problem the same interpolator classes: ``ExactInterp2D``
@@ -26,6 +28,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ipde_tpu_torch.utils.profiling import count
 
 
 # ---------------------------------------------------------------------------
@@ -69,6 +73,27 @@ def _es_beta(w: int, sigma: float) -> float:
     """ES shape parameter: finufft's rule beta = 2.30 w at sigma = 2,
     scaled like pi w (1 - 1/(2 sigma)) for other upsampling factors."""
     return 2.30 * w * (1.0 - 0.5 / sigma) / 0.75
+
+
+def phase_matrix(t, k, *, device) -> torch.Tensor:
+    """exp(i outer(t, k)) as a (T, n) complex128 tensor built on ``device``
+    from the (T,) coordinates ``t`` and the (n,) wavenumbers ``k``.
+
+    The angle is the same IEEE float64 product as ``np.outer(t, k)``; cos
+    and sin are taken on the device and written straight into the real and
+    imaginary parts of the output, so no (T, n) array lives on the host and
+    nothing but the output is allocated at full size.  Counted as
+    ``interp.phase_entries``."""
+    t = torch.as_tensor(np.asarray(t, np.float64).ravel(), device=device)
+    k = torch.as_tensor(np.asarray(k, np.float64).ravel(), device=device)
+    out = torch.empty((t.numel(), k.numel()), dtype=torch.complex128,
+                      device=device)
+    re, im = out.real, out.imag
+    torch.mul(t[:, None], k[None, :], out=re)      # the angle
+    torch.sin(re, out=im)
+    re.cos_()
+    count("interp.phase_entries", out.numel())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -278,8 +303,9 @@ class HybridInterp2D:
     tens of thousands: the modes are deconvolved and zero-padded along y,
     one complex128 inverse FFT along dim 0 gives the (nfy, B*nx) fine-in-y
     array, and each target sums w of its rows against its (nx,) phases.
-    The window weights, row indices, y-deconvolution and x-phases are built
-    on the host once per plan, as ipde_tpu builds them.
+    The window weights, row indices and y-deconvolution are built on the
+    host once per plan, as ipde_tpu builds them; the (T, nx) x-phases are
+    built on ``device`` (``phase_matrix``).
     """
 
     def __init__(self, nx: int, ny: int, tx, ty, sigma: float = 2,
@@ -303,12 +329,8 @@ class HybridInterp2D:
         ky = np.abs(np.fft.fftfreq(ny, 1.0 / ny)).astype(int)
         phy = _es_kernel_ft_table(w, beta, half_w * hy, int(ky.max()) + 1)
         self.deconv_y = dev(hy / phy[ky])                         # (ny,)
-        kxn = np.fft.fftfreq(nx, 1.0 / nx)
-        ang = np.outer(txa, kxn)
-        E = np.empty(ang.shape, np.complex128)                    # (T, nx)
-        E.real = np.cos(ang)
-        E.imag = np.sin(ang)
-        self.E = dev(E)
+        self.E = phase_matrix(txa, np.fft.fftfreq(nx, 1.0 / nx),
+                              device=device)                      # (T, nx)
         self.nfy = nfy
         self.T = txa.size
         self.w = w
@@ -352,8 +374,9 @@ class ExactInterp2D:
     """Exact type-2 evaluation for small mode grids via factorized matmuls.
 
     u(t) = Re sum_{kx} e^{i kx tx} sum_{ky} e^{i ky ty} c[kx, ky] / (nx ny)
-    with the (T, ny) and (T, nx) phase matrices precomputed on the host (the
-    same cos/sin values as ipde_tpu) and kept on ``device`` in complex128.
+    with the (T, ny) and (T, nx) phase matrices built once on ``device`` in
+    complex128 (``phase_matrix``: the same angles as ipde_tpu's, their cos
+    and sin within an ulp or two of its host values).
     Many fields go through in chunks whose (T, B nx) complex temporaries
     stay under ``max_temp_bytes`` (ipde_tpu's memory guard ignores the
     number of fields).
@@ -371,16 +394,8 @@ class ExactInterp2D:
         kxn = np.fft.fftfreq(nx, 1.0 / nx)
         kyn = np.fft.fftfreq(ny, 1.0 / ny)
         self.T = txa.size
-
-        def phases(t, k):
-            ang = np.outer(t, k)
-            ph = np.empty(ang.shape, np.complex128)
-            ph.real = np.cos(ang)
-            ph.imag = np.sin(ang)
-            return torch.as_tensor(ph, device=device)
-
-        self.EY = phases(tya, kyn)                       # (T, ny)
-        self.EX = phases(txa, kxn)                       # (T, nx)
+        self.EY = phase_matrix(tya, kyn, device=device)  # (T, ny)
+        self.EX = phase_matrix(txa, kxn, device=device)  # (T, nx)
         self.ikx = torch.as_tensor(1j * kxn, dtype=torch.complex128,
                                    device=device)
         self.iky = torch.as_tensor(1j * kyn, dtype=torch.complex128,

@@ -14,7 +14,7 @@ operations there; under the profiler each also enters
 span synchronizes the card: a span times the host, and what the device did
 inside it is the trace's.  ``take()`` returns what was recorded.
 
-The port's spans (parent > children) and counter:
+The port's spans (parent > children) and counters:
 
   geometry.boundary        ``EmbeddedBoundary()``: radial grid, QFS curves
   geometry.register        a collection's ``register_grid``
@@ -35,6 +35,8 @@ The port's spans (parent > children) and counter:
   planify.replay           one replay of a captured call
     > gmres.read           the host's wait for a GMRES status read
   planify.graphs (count)   graphs replayed
+  interp.phase_entries (count)  entries of the interpolation plans' phase
+                           matrices built (``ops/interp.py::phase_matrix``)
 """
 
 from __future__ import annotations

@@ -17,6 +17,7 @@ from ipde_tpu.ops.cx import Cx
 from ipde_tpu.ops.gmres import gmres as jgmres
 from ipde_tpu_torch.ops import fourier, interp
 from ipde_tpu_torch.ops.gmres import gmres
+from ipde_tpu_torch.utils import profiling
 
 
 def _close(got, want, rtol=1e-13):
@@ -129,6 +130,68 @@ def test_make_interpolator_routing(nx, ny, T):
         # the window NUFFT is ported: same window and fine grid
         assert got.w == want.w
         assert (got.plan.nfx, got.plan.nfy) == (want.plan.nfx, want.plan.nfy)
+
+
+def _host_phases(t, k):
+    ang = np.outer(t, k)
+    return np.cos(ang) + 1j * np.sin(ang)
+
+
+@pytest.mark.parametrize("n,M", [(121, 8), (64, 16)])   # odd and even n
+def test_phase_matrix_against_numpy(n, M):
+    """The device-built phases equal NumPy's cos and sin of the same outer
+    product to 1e-15, with negative fftfreq wavenumbers, a Chebyshev
+    reflection's offset pi / (2M) and repeated (padded) targets."""
+    rng = np.random.default_rng(n)
+    t = rng.uniform(0, 2 * np.pi, 700)
+    t = np.concatenate([t, np.full(60, t[-1])]) - np.pi / (2 * M)
+    k = np.fft.fftfreq(n, 1.0 / n)
+    got = interp.phase_matrix(t, k, device="cpu")
+    assert got.dtype == torch.complex128 and got.shape == (t.size, n)
+    assert np.abs(got.numpy() - _host_phases(t, k)).max() <= 1e-15
+
+
+def test_phase_entries_counter():
+    """Each phase matrix a plan builds adds its T x n entries to
+    ``interp.phase_entries`` inside ``recording()``, and nothing outside."""
+    rng = np.random.default_rng(3)
+    tx, ty = rng.uniform(0, 2 * np.pi, (2, 900))
+    profiling.take()
+    interp.ExactInterp2D(16, 120, tx, ty, np.pi / 16, device="cpu")
+    assert profiling.take().counts == {}
+    with profiling.recording():
+        interp.ExactInterp2D(16, 120, tx, ty, np.pi / 16, device="cpu")
+        assert profiling.take().counts == {"interp.phase_entries": 900 * 136}
+        interp.HybridInterp2D(16, 256, tx, ty, x_offset=np.pi / 16,
+                              device="cpu")
+        assert profiling.take().counts == {"interp.phase_entries": 900 * 16}
+
+
+@pytest.mark.gpu
+def test_phase_matrix_on_card_radial_plan():
+    """At Poisson nb=1200's radial-to-grid shape (32 x 1,200 modes, 26,624
+    padded annulus targets) the card-built phases are within 4e-15 of
+    NumPy's, and the plan's values within 1e-13 of the same plan with the
+    NumPy-built phases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(26624)
+    nx, ny, T, off = 32, 1200, 26624, np.pi / 32
+    tx = rng.uniform(0, np.pi, T)
+    ty = rng.uniform(0, 2 * np.pi, T)
+    tx[-600:], ty[-600:] = tx[-601], ty[-601]    # padded slots repeat
+    plan = interp.ExactInterp2D(nx, ny, tx, ty, off, device=dev)
+    host = copy.copy(plan)
+    host.EY = torch.as_tensor(
+        _host_phases(ty, np.fft.fftfreq(ny, 1.0 / ny)), device=dev)
+    host.EX = torch.as_tensor(
+        _host_phases(tx - off, np.fft.fftfreq(nx, 1.0 / nx)), device=dev)
+    for got, want in ((plan.EY, host.EY), (plan.EX, host.EX)):
+        assert (got - want).abs().max().item() <= 4e-15
+    c = torch.fft.fft2(torch.as_tensor(rng.standard_normal((3, nx, ny)),
+                                       device=dev))
+    _close(plan.from_modes(c), host.from_modes(c).cpu().numpy())
 
 
 def _system(n=80, seed=2):

@@ -28,6 +28,7 @@ import numpy as np
 from scipy.special import i0, i1, k0, k1
 
 from ipde_tpu_torch.geometry.curve import BoundaryCurve
+from ipde_tpu_torch.utils.profiling import spanned
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +178,7 @@ def _kress_band(z: np.ndarray, z_lo: float = 2.0, z_hi: float = 6.0):
     return f1w / (fw + f1w + 1e-300)
 
 
+@spanned("setup.self_forms")
 def mh_slp_self(curve: BoundaryCurve, k: float) -> np.ndarray:
     """Yukawa SLP self matrix; oversamples the quadrature grid when k h is
     large so the 1/k kernel scale stays resolved (high-k ledger parity)."""
@@ -215,6 +217,7 @@ def _mh_slp_self_base(curve: BoundaryCurve, k: float) -> np.ndarray:
     return (A * W + B * curve.dt) * sp
 
 
+@spanned("setup.self_forms")
 def mh_dlp_self(curve: BoundaryCurve, k: float) -> np.ndarray:
     """Yukawa DLP self matrix (oversampled at high k; see mh_slp_self)."""
     return _oversampled_self(_mh_dlp_self_base, curve, k)
@@ -283,6 +286,7 @@ def mh_slp_normal_naive(src: BoundaryCurve, tx, ty, tnx, tny, k: float) -> np.nd
     return -k * k1(k * r) * dot / (2 * np.pi * r) * src.weights[None, :]
 
 
+@spanned("setup.self_forms")
 def mh_slp_normal_self(curve: BoundaryCurve, k: float) -> np.ndarray:
     """PV of d/dn_x Yukawa SLP (oversampled at high k; see mh_slp_self)."""
     return _oversampled_self(_mh_slp_normal_self_base, curve, k)

@@ -28,6 +28,10 @@ The port's spans (parent > children) and counters:
     > setup.radial_plans   stratified source-to-radial-grid plans
   setup.bie                the BIE constructors (and the parts above)
     > setup.bie.invert     the inverse of the BIE system
+  setup.self_forms         the host-built Yukawa self forms
+                           (``ops/singular.py``), inside setup.qfs or
+                           setup.bie; no part of its own, so its time stays
+                           in the enclosing part
   planify.capture          a planified call's first call on a card
     > planify.warmup       its eager run
     > planify.record       the capture of its graphs

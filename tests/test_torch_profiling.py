@@ -4,7 +4,9 @@ record under ``torch.profiler`` on the trace's clock, and the spans of the
 geometry, set-up and planify layers cover what those layers do.
 
 The build is the planified stepper test's small problem (star(48, a=0.1,
-f=3), M=8, pad_quantum 256) with a Poisson solver and its Dirichlet BIE."""
+f=3), M=8, pad_quantum 256) with a Poisson solver and its Dirichlet BIE;
+a Yukawa solver and its Dirichlet BIE on the same collection record the
+host-built self forms."""
 
 import time
 
@@ -18,7 +20,8 @@ from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
 from ipde_tpu_torch.geometry.curve import star
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.solvers.bie import DirichletBIE
-from ipde_tpu_torch.solvers.scalar import PoissonSolver
+from ipde_tpu_torch.solvers.scalar import (ModifiedHelmholtzSolver,
+                                           PoissonSolver)
 from ipde_tpu_torch.utils import profiling
 from ipde_tpu_torch.utils.planify import planified, replan
 
@@ -165,3 +168,16 @@ def test_replan_and_gmres_reads_record_spans(built):
     # on the CPU a planified call runs eagerly: GMRES reads, no graphs
     assert names.count("gmres.read") >= 2
     assert "planify.graphs" not in got.counts
+
+
+def test_yukawa_self_forms_record_a_span_inside_qfs_or_bie(built):
+    spans, _, (c, _, _) = built
+    assert "setup.self_forms" not in {s.name for s in spans}
+    with profiling.recording():
+        DirichletBIE(ModifiedHelmholtzSolver(c, k=2.0))
+    got = profiling.take().spans
+    by = {s.id: s for s in got}
+    forms = [s for s in got if s.name == "setup.self_forms"]
+    # the QFS maps' SLP and DLP self forms, and the BIE's DLP self block
+    assert len(forms) >= 3
+    assert {by[s.parent].name for s in forms} == {"setup.qfs", "setup.bie"}

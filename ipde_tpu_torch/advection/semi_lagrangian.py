@@ -79,11 +79,13 @@ def _query_points(ebdyc):
 def _assemble(new_ebdyc, vals: torch.Tensor) -> EmbeddedFunction:
     """EmbeddedFunction on new_ebdyc from values at its _query_points: the
     pna values are scattered onto the grid (padded slots dropped), the
-    radial values reshaped, then merged onto the grid."""
+    radial values reshaped, then merged onto the grid.  The query points
+    hold the host pna set, the first slots of ``pna_flat_dev``'s
+    capacity."""
     n_pna = new_ebdyc.pna_x.size
     grid = set_flat(torch.zeros(new_ebdyc.grid.Nx * new_ebdyc.grid.Ny,
                                 dtype=vals.dtype, device=vals.device),
-                    new_ebdyc.pna_flat_dev, vals[:n_pna])\
+                    new_ebdyc.pna_flat_dev[:n_pna], vals[:n_pna])\
         .reshape(new_ebdyc.grid.shape)
     radials = []
     start = n_pna

@@ -23,6 +23,7 @@ from ipde_tpu_torch.geometry.grid import Grid
 from ipde_tpu_torch.ops.fd import fd_x_4, fd_xx_4, fd_y_4, fd_yy_4
 from ipde_tpu_torch.ops.fourier import FourierPlan1D, FourierPlan2D
 from ipde_tpu_torch.ops.interp import PolyInterpolator2D, make_interpolator
+from ipde_tpu_torch.utils.planify import capacity
 from ipde_tpu_torch.utils.profiling import spanned
 
 
@@ -164,9 +165,12 @@ class EmbeddedBoundaryCollection:
         a repeat of the first real coordinate.  Every scatter over these
         index sets drops the padded slots (``set_flat``, ``add_flat``);
         padded targets repeat a real point, which is harmless in a sum.
-        Successive registrations of a moving boundary then give plan
-        arrays of the same shapes (the stepper requires it, as ipde_tpu's
-        does)."""
+        The pna set's device copies (``pna_*_dev``) are padded further, to
+        a capacity that a turned boundary keeps (``_pna_bound``), and the
+        FFT evaluators of solvers on this collection take capacities of
+        their own (``ops/grid_eval.py``).  Successive registrations of a
+        moving boundary then give plan arrays of the same shapes (the
+        stepper requires it, as ipde_tpu's does)."""
         self.grid = grid
         self.pad_quantum = pad_quantum
         regs = [e.register_grid(grid, danger_zone_distance, verbose)
@@ -209,13 +213,20 @@ class EmbeddedBoundaryCollection:
         self.pna_flat = np.flatnonzero(self.phys_not_in_annulus)
         self.pna_x = grid.xg[self.phys_not_in_annulus]
         self.pna_y = grid.yg[self.phys_not_in_annulus]
+        more = 0
         if pad_quantum:
             self.pna_flat, (self.pna_x, self.pna_y) = pad_index_set(
                 self.pna_flat, (self.pna_x, self.pna_y), pad_quantum,
                 grid.Nx * grid.Ny)
-        self.pna_flat_dev = self._dev(self.pna_flat, torch.int64)
-        self.pna_x_dev = self._dev(self.pna_x)
-        self.pna_y_dev = self._dev(self.pna_y)
+            # the device copies take a capacity that a turned boundary
+            # keeps; the host arrays keep ipde_tpu's layout
+            more = capacity(self.pna_flat.size,
+                            _cap(self._pna_bound(), pad_quantum)) \
+                - self.pna_flat.size
+        self.pna_flat_dev = self._dev(np.concatenate(
+            [self.pna_flat, np.full(more, grid.Nx * grid.Ny)]), torch.int64)
+        self.pna_x_dev = self._dev(_pad_repeat(self.pna_x, more))
+        self.pna_y_dev = self._dev(_pad_repeat(self.pna_y, more))
 
         # smoothed step: 1 deep inside, rolls to 0 through each annulus
         gs = phys.astype(np.float64)
@@ -239,6 +250,26 @@ class EmbeddedBoundaryCollection:
             ty = (np.asarray(y) - grid.y_bounds[0]) / grid.y_period * 2 * np.pi
             return tx, ty
         self.transf = transf
+
+    def _pna_bound(self) -> int:
+        """A bound on the pna points that a turned boundary keeps: they lie
+        inside each interior boundary's interface curve, so the hx x hy
+        cells about them lie inside that curve grown by half a cell's
+        diagonal rho, of area at most A + 2 rho L + pi rho^2 (A and L the
+        curve's area and length, spectrally exact); Nx Ny without an
+        interior boundary."""
+        g = self.grid
+        rho = 0.5 * np.hypot(g.xh, g.yh)
+        n = g.Nx * g.Ny
+        for e in self.ebdys:
+            if e.interior:
+                c = e.interface
+                area = 0.5 * c.dt * abs(float(np.sum(c.x * c.yp
+                                                     - c.y * c.xp)))
+                grown = area + 2 * rho * float(c.weights.sum()) \
+                    + np.pi * rho ** 2
+                n = min(n, int(grown / (g.xh * g.yh)))
+        return n
 
     @spanned("geometry.plans")
     def _register_plans(self, grid, regs, pad_quantum):

@@ -49,6 +49,7 @@ from ipde_tpu_torch.geometry.grid import Grid
 from ipde_tpu_torch.ops.fourier import FourierPlan2D
 from ipde_tpu_torch.ops.interp import _es_kernel
 from ipde_tpu_torch.ops.kernels import expint_e1, k0_split
+from ipde_tpu_torch.utils.planify import capacity
 from ipde_tpu_torch.utils.profiling import spanned
 
 # the spread runs as one matmul of dense window factors, S x (nzx + nzy)
@@ -65,6 +66,26 @@ DECONV_CLIP = 1e-13
 # H100, tools/torch_csr_determinism.py; PERF.md, PR 12)
 CSR_ROW_CHUNK = 128
 CSR_ROW_QUANTUM = 4096
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round_up(n: int, quantum: int) -> int:
+    return _ceil_div(n, quantum) * quantum
+
+
+def _most_within(x: torch.Tensor, y: torch.Tensor, r: float) -> int:
+    """The most points of (x, y) within distance r of one of them, itself
+    included: a count of pair distances, which turning the points leaves as
+    it is."""
+    best = x.new_zeros((), dtype=torch.int64)
+    for s in range(0, x.numel(), 1024):
+        d = torch.hypot(x[s:s + 1024, None] - x[None, :],
+                        y[s:s + 1024, None] - y[None, :])
+        best = torch.maximum(best, (d <= r).sum(1).max())
+    return int(best)
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +367,18 @@ def _m_k2_j0_dev(k, r):
 class _EvaluatorBase:
     """Shared machinery: box/padding layout, spreading plan, window
     deconvolution, Gaussian screen, near-patch geometry and the sparse
-    matrix of the near corrections."""
+    matrix of the near corrections.
+
+    ``padded`` (a free-space evaluator of a collection registered with
+    ``pad_quantum``): the spread block and the near-correction plan take
+    capacities that a turned boundary keeps, bounds from the grid, the
+    window, the patch size and the sources' pair distances, zero-filled
+    past what is used (``_setup_spreading``, ``_set_patches``), so that
+    ``replan`` of a rebuilt evaluator holds.  A geometry past a capacity
+    keeps its own shape, counted as ``plan.capacity_overflow``.  Unpadded
+    evaluators keep their exact shapes."""
+
+    padded = False
 
     # truncation margin between the farthest used pair distance and the
     # symbol's cutoff L, in units of h/pi: must exceed the Gaussian screen's
@@ -444,8 +476,13 @@ class _EvaluatorBase:
             nzy = int(pys.max()) + 1
             if nzx > Px or nzy > Py:
                 raise ValueError("source windows exceed the padded box")
-            nzx = min(Px, -(-nzx // 32) * 32)
-            nzy = min(Py, -(-nzy // 32) * 32)
+            nzx = min(Px, _round_up(nzx, 32))
+            nzy = min(Py, _round_up(nzy, 32))
+            if self.padded:
+                # windows of sources within a cell of the grid reach at
+                # most w cells past it, shifted or not
+                nzx = capacity(nzx, min(Px, _round_up(grid.Nx + w, 32)))
+                nzy = capacity(nzy, min(Py, _round_up(grid.Ny + w, 32)))
         self.sx_cells, self.sy_cells = sx, sy
         # the output window's rows and columns of the padded box, as
         # tensors: they move with the sources, and a replanned CUDA graph
@@ -534,6 +571,13 @@ class _EvaluatorBase:
             siy = np.clip(siy, 0, grid.Ny - 1)
         loc = np.arange(P) - wc
         t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        if self.padded:
+            # the sources whose patches reach one cell lie within 2 wc + 1
+            # cells of each other on each axis; _patch_matrix parks a
+            # block's entries off the grid on rows of their index mod Nx Ny
+            self._row_bound = _most_within(
+                t(src_x), t(src_y), (2 * wc + 1) * np.hypot(hx, hy)) \
+                + _ceil_div(self.S * P * P, grid.Nx * grid.Ny)
         dx = t(six * hx + grid.x_bounds[0] - src_x)[:, None] \
             + t(loc * hx)[None, :]                    # (S, P)
         dy = t(siy * hy + grid.y_bounds[0] - src_y)[:, None] \
@@ -561,7 +605,8 @@ class _EvaluatorBase:
         ``replan`` copies a moved evaluator's matrix into a captured one of
         the same number of entries).  Entries of a row are ordered by
         column, so one sparse-dense product adds every patch in a fixed
-        order."""
+        order.  Padded: ``_longest_row`` bounds a row's entries (the blocks
+        of one output times ``_patch_geometry``'s bound for a block)."""
         nc = self.grid.Nx * self.grid.Ny
         keep = (mask & (cell >= 0)).reshape(-1)
         flat = cell.reshape(-1)
@@ -580,6 +625,9 @@ class _EvaluatorBase:
                            device=self.device)
         crow[1:] = torch.bincount(rows, minlength=n_out * nc).cumsum(0)
         idx = torch.int32 if vals.numel() < 2**31 else torch.int64
+        if self.padded:
+            self._longest_row = self._row_bound * max(
+                sum(o == k for o, _, _ in blocks) for k in range(n_out))
         with warnings.catch_warnings():   # "sparse CSR support is in beta"
             warnings.simplefilter("ignore", UserWarning)
             return torch.sparse_csr_tensor(
@@ -606,15 +654,26 @@ class _EvaluatorBase:
         CSR_ROW_QUANTUM so that a moved evaluator keeps its shape), and the
         pieces of a row are added in order through ``_patch_rows``, the
         (rows, most pieces) table of their indices (an absent piece points
-        past the last, at a zero).  ``_patches`` gives A back from them."""
+        past the last, at a zero).  ``_patches`` gives A back from them.
+        Padded, both take capacities that a turned boundary keeps: a piece
+        for each row with entries plus one per CSR_ROW_CHUNK entries past
+        them, and ``_longest_row`` / CSR_ROW_CHUNK pieces a row; the rows
+        past the pieces are empty."""
         self._patch_crow = A.crow_indices()
         self._patch_shape = tuple(A.shape)
         crow = A.crow_indices().to(torch.int64)
         lens = crow.diff()
         pieces = (lens + CSR_ROW_CHUNK - 1) // CSR_ROW_CHUNK
         first = pieces.cumsum(0) - pieces          # a row's first piece
-        n_pieces = int(pieces.sum())
-        rows_p = -(-max(n_pieces, 1) // CSR_ROW_QUANTUM) * CSR_ROW_QUANTUM
+        rows_p = _round_up(max(int(pieces.sum()), 1), CSR_ROW_QUANTUM)
+        width = max(int(pieces.max()), 1)
+        if self.padded:
+            nnz, filled = A._nnz(), min(A.shape[0], A._nnz())
+            rows_p = capacity(rows_p, _round_up(
+                filled + _ceil_div(nnz - filled, CSR_ROW_CHUNK),
+                CSR_ROW_QUANTUM))
+            width = capacity(width,
+                             _ceil_div(self._longest_row, CSR_ROW_CHUNK))
         # each entry's piece: its row's first piece + its place in the row
         row_of = torch.repeat_interleave(torch.arange(lens.numel(),
                                                       device=crow.device),
@@ -629,7 +688,7 @@ class _EvaluatorBase:
                 pcrow.to(A.crow_indices().dtype), A.col_indices(),
                 A.values(), size=(rows_p, A.shape[1]),
                 check_invariants=False)
-        k = torch.arange(max(int(pieces.max()), 1), device=crow.device)
+        k = torch.arange(width, device=crow.device)
         self._patch_rows = torch.where(k[None, :] < pieces[:, None],
                                        first[:, None] + k[None, :], rows_p)
 
@@ -647,10 +706,14 @@ class _EvaluatorBase:
     def _apply_patches(self, fields: torch.Tensor,
                        q: torch.Tensor) -> torch.Tensor:
         """fields (n_out, Nx, Ny) plus the near corrections of the source
-        vector q (n_in S,): ``_patches @ q``, summed piece by piece in a
-        fixed order (``_set_patches``)."""
+        vector q (n_in S,): ``_patches @ q``, summed piece by piece from
+        the first (``_set_patches``), so that absent pieces past a row's
+        last add zeros and leave its bits as they are."""
         y = self._patch_pieces @ q
-        y = torch.cat([y, y.new_zeros(1)])[self._patch_rows].sum(1)
+        g = torch.cat([y, y.new_zeros(1)])[self._patch_rows]
+        y = g[:, 0]
+        for k in range(1, g.shape[1]):
+            y = y + g[:, k]
         return fields + y.reshape(fields.shape)
 
 
@@ -673,13 +736,15 @@ class FreespaceGridEvaluator(_EvaluatorBase):
     def __init__(self, grid: Grid, src_x, src_y, kernel: str = "laplace",
                  kappa: float = 1.0, pad: int = None, w: int = 16,
                  r_cut_h: float = 22.0, target_bounds=None,
-                 target_hull=None, *, device=None):
+                 target_hull=None, *, device=None, padded: bool = False):
         """target_bounds: ((x0, x1), (y0, y1)) bounding box of the grid
         points whose values are actually USED (e.g. the physical region);
         target_hull: (K, 2) extreme target points (tighter truncation radius
-        -> often one less padding factor -> 2x faster FFTs)."""
+        -> often one less padding factor -> 2x faster FFTs); padded: see
+        _EvaluatorBase."""
         self.device = require_cuda() if device is None \
             else torch.device(device)
+        self.padded = padded
         src_x = np.asarray(src_x, np.float64).ravel()
         src_y = np.asarray(src_y, np.float64).ravel()
         self.S = src_x.size
@@ -835,9 +900,10 @@ class StokesFreespaceGridEvaluator(_EvaluatorBase):
     @spanned("setup.evaluators")
     def __init__(self, grid: Grid, src_x, src_y, pad: int = None, w: int = 16,
                  r_cut_h: float = 22.0, target_bounds=None, target_hull=None,
-                 *, device=None):
+                 *, device=None, padded: bool = False):
         self.device = require_cuda() if device is None \
             else torch.device(device)
+        self.padded = padded
         src_x = np.asarray(src_x, np.float64).ravel()
         src_y = np.asarray(src_y, np.float64).ravel()
         self.S = src_x.size

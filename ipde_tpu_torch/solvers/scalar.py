@@ -429,7 +429,7 @@ class ScalarSolver:
                 ebdyc.all_interface_y_dev))
         else:
             out = self._apply_merged(sigma_g, self._dense_tx, self._dense_ty)
-            n_pna = ebdyc.pna_x.size
+            n_pna = self._pna_flat.numel()
             uc = add_flat(uc.reshape(-1), self._pna_flat, out[:n_pna])\
                 .reshape(ebdyc.grid.shape)
             bus = ebdyc.v2l(out[n_pna:])
@@ -466,7 +466,8 @@ class PoissonSolver(ScalarSolver):
                                       kernel="laplace",
                                       target_bounds=self.ebdyc.phys_bounds(),
                                       target_hull=self.ebdyc.phys_extremes(),
-                                      device=self.device)
+                                      device=self.device,
+                                      padded=bool(self.ebdyc.pad_quantum))
 
     def _make_annular_solver(self, geom):
         return AnnularPoissonSolver(geom, device=self.device)
@@ -533,7 +534,8 @@ class ModifiedHelmholtzSolver(ScalarSolver):
                                       kernel="yukawa", kappa=self.k,
                                       target_bounds=self.ebdyc.phys_bounds(),
                                       target_hull=self.ebdyc.phys_extremes(),
-                                      device=self.device)
+                                      device=self.device,
+                                      padded=bool(self.ebdyc.pad_quantum))
 
     def _make_annular_solver(self, geom):
         return AnnularModifiedHelmholtzSolver(geom, k=self.k,

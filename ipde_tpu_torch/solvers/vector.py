@@ -351,7 +351,8 @@ class StokesSolver:
         the physical grid points."""
         return StokesFreespaceGridEvaluator(
             self.ebdyc.grid, gx, gy, target_bounds=self.ebdyc.phys_bounds(),
-            target_hull=self.ebdyc.phys_extremes(), device=self.device)
+            target_hull=self.ebdyc.phys_extremes(), device=self.device,
+            padded=bool(self.ebdyc.pad_quantum))
 
     def __call__(self, fu: EmbeddedFunction, fv: EmbeddedFunction,
                  tol: float = 1e-12, maxiter: int = 200, restart: int = 50,
@@ -444,8 +445,8 @@ class StokesSolver:
             gu, gv, gp = self._apply_stokes(
                 self.grid_src_x, self.grid_src_y, wfx, wfy, self._dense_tx,
                 self._dense_ty)
-            n_pna = ebdyc.pna_x.size
             idx = ebdyc.pna_flat_dev
+            n_pna = idx.numel()
             uc, vc, pc = (add_flat(c.reshape(-1), idx, g[:n_pna])
                           .reshape(c.shape) for c, g in ((uc, gu), (vc, gv),
                                                          (pc, gp)))

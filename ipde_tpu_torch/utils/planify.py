@@ -473,6 +473,17 @@ def planified(fn: Callable, *roots, capture: bool = True):
     return call
 
 
+def capacity(used: int, cap: int) -> int:
+    """The size of a plan tensor of a padded (``pad_quantum``) registration:
+    ``cap``, a bound that a turned boundary keeps, so that ``replan`` holds;
+    ``used`` where it exceeds ``cap``, counted as ``plan.capacity_overflow``
+    (that rebuild's ``replan`` then misses and captures again)."""
+    if used > cap:
+        count("plan.capacity_overflow")
+        return used
+    return cap
+
+
 def _check_no_growth(store, roots):
     """Raise when a call left plan tensors on the roots that ``store`` does
     not hold (made lazily at first use): a replay would keep the first

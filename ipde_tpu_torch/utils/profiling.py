@@ -41,6 +41,10 @@ The port's spans (parent > children) and counters:
   planify.graphs (count)   graphs replayed
   interp.phase_entries (count)  entries of the interpolation plans' phase
                            matrices built (``ops/interp.py::phase_matrix``)
+  plan.capacity_overflow (count)  plan tensors of a padded registration
+                           whose used size passed their capacity
+                           (``utils/planify.py::capacity``): each one a
+                           certain ``replan`` miss
 """
 
 from __future__ import annotations

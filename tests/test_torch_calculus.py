@@ -334,7 +334,13 @@ def test_padded_plans_match_ipde_tpu():
         a, b = getattr(jc, name), getattr(tc, name)
         assert a.shape == b.shape and np.array_equal(a, b), name
     assert tc.pna_flat.size % 256 == 0
-    assert tc.pna_flat_dev.shape == jc.pna_flat_dev.shape
+    # the device copy: ipde_tpu's, then the sentinel up to a capacity
+    # that a turned boundary keeps (a multiple of the quantum)
+    n = jc.pna_flat_dev.shape[0]
+    assert np.array_equal(tc.pna_flat_dev[:n].numpy(),
+                          np.asarray(jc.pna_flat_dev))
+    assert tc.pna_flat_dev.shape[0] % 256 == 0
+    assert (tc.pna_flat_dev[n:] == tc.grid.Nx * tc.grid.Ny).all()
     for a, b in zip(jc.ia_flat_list, tc.ia_flat_list):
         assert a.shape == b.shape
         assert np.array_equal(np.asarray(a), b.numpy())

@@ -22,8 +22,10 @@ the CPU, skipped with a reason where torch sees no CUDA device."""
 
 import numpy as np
 import pytest
-import torch
 
+from _torch_testing import as_np as _np, cuda_or_skip
+from _torch_testing import one_torch_thread  # noqa: F401
+from _torch_testing import rel_gap as _gap
 import ipde_tpu.advection.semi_lagrangian as jsl
 from ipde_tpu.advection import zone3_device as jz3
 from ipde_tpu.functions import BoundaryFunction as JBF
@@ -46,19 +48,6 @@ NB, M, PQ = 48, 8, 256
 NU, DT, T0 = 0.05, 0.05, 0.5
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module: the tier-1 command runs six
-    workers on eight cores, where torch's OpenMP threads oversubscribe the
-    CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
 def c0(x, y):
     s = 4 * NU * T0
     return np.exp(-(x * x + y * y) / s) / (np.pi * s)
@@ -74,21 +63,6 @@ def vf(x, y):
 
 def F(x, y):
     return np.exp(np.sin(x)) * np.sin(2 * y)
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _gap(got, want, phys):
-    """max |got - want| over the physical grid points and radial grids,
-    relative to the largest |want| there."""
-    scale = max(np.abs(_np(want.grid))[phys].max(),
-                *(np.abs(_np(r)).max() for r in want.radials))
-    gap = np.abs(_np(got.grid) - _np(want.grid))[phys].max()
-    for a, b in zip(got.radials, want.radials):
-        gap = max(gap, np.abs(_np(a) - _np(b)).max())
-    return gap / scale
 
 
 def _collections(device="cpu"):
@@ -347,8 +321,7 @@ def test_stepper_step_on_cuda_matches_cpu(steps, monkeypatch):
     # the device one, is held to the CPU in test_torch_device_setup.py)
     monkeypatch.setenv("IPDE_QFS_BACKEND", "host")
     from ipde_tpu_torch.ops import kernels as K
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
+    cuda_or_skip()
     out = {}
     for dev in ("cpu", "cuda"):
         _, tc = _collections(dev)

@@ -19,15 +19,12 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-from ipde_tpu.functions import BoundaryFunction as JBF
-from ipde_tpu.functions import EmbeddedFunction as JEF
-from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
-from ipde_tpu.geometry.curve import star as jstar
-from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
-from ipde_tpu.ops.stratified import StratifiedRadialApply as JSRA
+import _torch_testing as tt
+from _torch_testing import SOLVE, as_np as _np, mms_err, pfrc, psol
+from _torch_testing import cuda_or_skip as _cuda
+from _torch_testing import one_torch_thread  # noqa: F401
+from _torch_testing import rel_gap as _gap
 from ipde_tpu.solvers import annular_scalar as jann
-from ipde_tpu.solvers.bie import DirichletBIE as JDBIE
-from ipde_tpu.solvers.scalar import PoissonSolver as JPS
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
                                                 load_collection)
@@ -41,91 +38,18 @@ from ipde_tpu_torch.solvers.scalar import (ModifiedHelmholtzSolver,
                                            PoissonSolver)
 from ipde_tpu_torch.solvers.vector import StokesSolver
 
-SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module.  The tier-1 command runs six
-    workers on eight cores, where torch's OpenMP threads oversubscribe the
-    CPU: the port's small CPU paths here then run many times slower than on
-    one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-# the manufactured solution of tests/test_exterior.py
-def psol(x, y):
-    return -np.cos(x) * np.exp(np.sin(x)) * np.sin(y)
-
-
-def pfrc(x, y):
-    return ((2.0 * np.cos(x) + 3.0 * np.cos(x) * np.sin(x) - np.cos(x) ** 3)
-            * np.exp(np.sin(x)) * np.sin(y))
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _plans_as_port(jbie):
-    """The port's BIE radial plans on an ipde_tpu BIE (see
-    tests/test_torch_multi_body.py::_plans_as_port)."""
-    for i, e in enumerate(jbie.ebdyc):
-        for j, (src, ej) in enumerate(zip(jbie.src_list, jbie.ebdyc)):
-            if not (i == j and e.interior):
-                jbie.radial_plans[i][j] = JSRA(src, e.radial_x, e.radial_y,
-                                               k_density=ej.bdy.N // 2,
-                                               max_stride=1)
-    return jbie
-
-
-def _gap(got, want, phys):
-    """max |got - want| over the physical grid points and every radial
-    grid, relative to max |want| there."""
-    g, w = _np(got.grid), _np(want.grid)
-    scale = max(np.abs(w)[phys].max(),
-                max(np.abs(_np(r)).max() for r in want.radials))
-    gap = max(np.abs(g - w)[phys].max(),
-              max(np.abs(_np(a) - _np(b)).max()
-                  for a, b in zip(got.radials, want.radials)))
-    return gap / scale
-
-
-def _err(ef, ebdyc, f):
-    """max |ef - f| over the physical grid points and radial nodes."""
-    g = ebdyc.grid
-    return max(np.abs(_np(ef.grid) - f(g.xg, g.yg))[ebdyc.phys].max(),
-               max(np.abs(_np(r) - f(e.radial_x, e.radial_y)).max()
-                   for r, e in zip(ef.radials, ebdyc.ebdys)))
-
-
 @pytest.fixture(scope="module")
 def poisson2():
     """Poisson with one inclusion of the interior boundary's (n, M): both
     packages take the batched annular GMRES.  ipde_tpu on the dense grid
     backend, the port on the fft one."""
-    M = 6
-    outer = jstar(64, a=0.1, f=3)
-    inner = jstar(64, x=0.1, y=-0.05, r=0.35, a=0.05, f=3)
-    bh = min(outer.min_h(), inner.min_h(),
-             0.6 / np.abs(inner.curvature).max() / M)
-    jc = JEBC([JEB(outer, True, M, bh), JEB(inner, False, M, bh)])
-    jc.generate_grid(bh)
-    js = JPS(jc, grid_backend="dense")
-    jf = JEF.from_function(jc, pfrc)
-    jraw, jst = js.solve_with_stats(jf, **SOLVE)
-    jbc = JBF.from_function(jc, psol)
-    juf = _plans_as_port(JDBIE(js)).apply_bc(jraw, jbc)
-    tc = load_collection(jc.save(), "cpu")
-    tc.generate_grid(bh)
-    return dict(jc=jc, js=js, jraw=jraw, jst=jst, juf=juf, tc=tc,
-                ts=PoissonSolver(tc),
-                tf=EmbeddedFunction.load(jf.save(), "cpu"),
+    bodies, bh = tt.two_body()
+    jc, tc = tt.paired_collections(bodies, bh)
+    ref = tt.reference_solve(bodies, bh, "poisson", (pfrc,), (psol,),
+                             port_plans=True)
+    return dict(jc=jc, js=ref["js"], jraw=ref["jraw"], jst=ref["jst"],
+                juf=ref["jue"], tc=tc, ts=PoissonSolver(tc),
+                tf=EmbeddedFunction.load(ref["jf"][0].save(), "cpu"),
                 tbc=BoundaryFunction.from_function(tc, psol))
 
 
@@ -145,7 +69,8 @@ def test_inclusion_poisson_batched(poisson2, monkeypatch):
     assert _gap(raw, p["jraw"], tc.phys) <= 1e-10
     got = DirichletBIE(ts).apply_bc(raw, p["tbc"])
     assert _gap(got, p["juf"], tc.phys) <= 1e-10
-    assert _err(got, tc, psol) <= 1.01 * _err(p["juf"], tc, psol) + 1e-12
+    assert (mms_err(tc, got, psol)
+            <= 1.01 * mms_err(tc, p["juf"], psol) + 1e-12)
 
 
 def test_batched_annular_solve_matches_reference(poisson2):
@@ -270,12 +195,6 @@ def test_stokes_helper_reuse_donor():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-    return torch.device("cuda", 0)
-
 
 @pytest.mark.gpu
 def test_inclusion_poisson_on_cuda_matches_cpu(poisson2, monkeypatch):

@@ -17,43 +17,21 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_testing as tt
+from _torch_testing import assert_close as _close
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.functions import EmbeddedFunction as JEF
-from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
-from ipde_tpu.geometry.curve import star as jstar
-from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
 from ipde_tpu.ops import fd as jfd
 from ipde_tpu.ops import fourier as jfourier
 from ipde_tpu.ops import interp as jinterp
 from ipde_tpu.ops.cx import Cx
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
-from ipde_tpu_torch.geometry.collection import load_collection
 from ipde_tpu_torch.ops import fd, fourier, interp
 from ipde_tpu_torch.solvers.bie import NeumannBIE, solve_dirichlet
 from ipde_tpu_torch.solvers.scalar import (ModifiedHelmholtzSolver,
                                            PoissonSolver)
 
 NB, M = 48, 8
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module: the tier-1 command runs six
-    workers on eight cores, where torch's OpenMP threads oversubscribe the
-    CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-def _close(got, want, rtol=1e-13):
-    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
-    want = np.asarray(want)
-    assert got.shape == want.shape
-    err = np.abs(got - want).max() / np.abs(want).max()
-    assert err < rtol, err
 
 
 def _cx(c):
@@ -264,14 +242,11 @@ def test_make_interpolator_routes_tier2_interface():
 F = lambda x, y: np.exp(np.sin(x)) * np.sin(2 * y)  # noqa: E731
 
 
+STAR = (tt.body(NB, M, a=0.1, f=3),)
+
+
 def _star_collection(pad_quantum=None):
-    bdy = jstar(NB, a=0.1, f=3)
-    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
-    jc = JEBC([JEB(bdy, True, M, bh, qfs_tolerance=1e-12)])
-    jc.generate_grid(bh, pad_quantum=pad_quantum)
-    tc = load_collection(jc.save(), "cpu")
-    tc.generate_grid(tc.ebdys[0].h, pad_quantum=pad_quantum)
-    return jc, tc
+    return tt.paired_collections(STAR, tt.one_body_h(STAR[0]), pad_quantum)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,9 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_testing import fuf as _fuf, fvf as _fvf, pfrc as _frc
+from _torch_testing import one_torch_thread  # noqa: F401
+from _torch_testing import psol as _sol, usol as _usol, vsol as _vsol
 from ipde_tpu.geometry.curve import star as jstar
 from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
 from ipde_tpu.ops import singular as jsq
@@ -47,17 +50,6 @@ LIMITS = {"poisson": 2e-10, "stokes": 5e-9, "laplace_neumann": 5e-9,
 GRID_BACKEND = {"poisson": "fft", "stokes": "dense",
                 "laplace_neumann": "dense", "mh_neumann": "fft"}
 K = 2.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module (see tests/test_torch_multi_body.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 @pytest.fixture
@@ -114,16 +106,6 @@ def ebdyc():
     return _collection("cpu")
 
 
-def _sol(x, y):
-    return -np.cos(x) * np.exp(np.sin(x)) * np.sin(y)
-
-
-def _frc(x, y):
-    """lap _sol."""
-    return ((2.0 * np.cos(x) + 3.0 * np.cos(x) * np.sin(x) - np.cos(x) ** 3)
-            * np.exp(np.sin(x)) * np.sin(y))
-
-
 def _sol_grad(x, y):
     return ((np.sin(x) - np.cos(x) ** 2) * np.exp(np.sin(x)) * np.sin(y),
             -np.cos(x) * np.exp(np.sin(x)) * np.cos(y))
@@ -142,24 +124,6 @@ def _mh_frc(x, y):
 def _mh_grad(x, y):
     return (np.cos(x) * np.exp(np.sin(x)) * np.sin(2 * y),
             2 * np.exp(np.sin(x)) * np.cos(2 * y))
-
-
-def _usol(x, y):
-    return np.sin(x) * np.cos(y) + 0.2 * np.cos(2 * y)
-
-
-def _vsol(x, y):
-    return -np.cos(x) * np.sin(y) + 0.1 * np.sin(2 * x)
-
-
-def _fuf(x, y):
-    return (2 * np.sin(x) * np.cos(y) + 0.8 * np.cos(2 * y)
-            - np.sin(x) * np.sin(y))
-
-
-def _fvf(x, y):
-    return (-2 * np.cos(x) * np.sin(y) + 0.4 * np.sin(2 * x)
-            + np.cos(x) * np.cos(y))
 
 
 def _normal_data(ebdyc, grad):

@@ -19,20 +19,10 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_testing import one_torch_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "examples"))
-
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module (see tests/test_torch_multi_body.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _load(rel):

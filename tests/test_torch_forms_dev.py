@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.geometry.curve import star as jstar
 from ipde_tpu.ops import forms_dev as jfd
 from ipde_tpu.qfs.qfs import resample_dev as jresample_dev

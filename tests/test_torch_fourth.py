@@ -19,19 +19,10 @@ import numpy as np
 import pytest
 import torch
 
-import jax.numpy as jnp
-from ipde_tpu.functions import BoundaryFunction as JBF
-from ipde_tpu.functions import EmbeddedFunction as JEF
-from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
-from ipde_tpu.geometry.curve import star as jstar
-from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
-from ipde_tpu.ops.stratified import StratifiedRadialApply as JSRA
-from ipde_tpu.solvers.bie import DirichletBIE as JDBIE
-from ipde_tpu.solvers.bie import NeumannBIE as JNBIE
-from ipde_tpu.solvers.bie import StokesDirichletBIE as JSBIE
-from ipde_tpu.solvers.scalar import ModifiedHelmholtzSolver as JMHS
-from ipde_tpu.solvers.scalar import PoissonSolver as JPS
-from ipde_tpu.solvers.vector import StokesSolver as JSS
+import _torch_testing as tt
+from _torch_testing import SOLVE, fuf, fvf, msol, pfrc, psol, usol, vsol
+from _torch_testing import one_torch_thread  # noqa: F401
+from _torch_testing import rel_gap as _gap
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.geometry.collection import load_collection
 from ipde_tpu_torch.solvers import scalar as tscalar
@@ -41,33 +32,7 @@ from ipde_tpu_torch.solvers.scalar import (ModifiedHelmholtzSolver,
                                            PoissonSolver)
 from ipde_tpu_torch.solvers.vector import StokesSolver
 
-SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
 KH = 2.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module (the tier-1 command runs six
-    workers on eight cores; see tests/test_torch_multi_body.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-def psol(x, y):
-    return -np.cos(x) * np.exp(np.sin(x)) * np.sin(y)
-
-
-def pfrc(x, y):
-    return ((2.0 * np.cos(x) + 3.0 * np.cos(x) * np.sin(x) - np.cos(x) ** 3)
-            * np.exp(np.sin(x)) * np.sin(y))
-
-
-def msol(x, y):
-    return np.exp(np.sin(x)) * np.sin(2 * y) + 0.3 * np.cos(3 * x) * np.cos(y)
 
 
 def mfrc(x, y):
@@ -77,93 +42,21 @@ def mfrc(x, y):
                                  * np.cos(y))
 
 
-def mdn(bdy):
-    """du/dn of msol on the boundary."""
-    x, y = bdy.x, bdy.y
-    ux = (np.cos(x) * np.exp(np.sin(x)) * np.sin(2 * y)
-          - 0.9 * np.sin(3 * x) * np.cos(y))
-    uy = (2 * np.exp(np.sin(x)) * np.cos(2 * y)
-          - 0.3 * np.cos(3 * x) * np.sin(y))
-    return ux * bdy.normal_x + uy * bdy.normal_y
-
-
-def usol(x, y):
-    return np.sin(x) * np.cos(y) + 0.2 * np.cos(2 * y)
-
-
-def vsol(x, y):
-    return -np.cos(x) * np.sin(y) + 0.1 * np.sin(2 * x)
-
-
-def fuf(x, y):
-    return (2 * np.sin(x) * np.cos(y) + 0.8 * np.cos(2 * y)
-            - np.sin(x) * np.sin(y))
-
-
-def fvf(x, y):
-    return (-2 * np.cos(x) * np.sin(y) + 0.4 * np.sin(2 * x)
-            + np.cos(x) * np.cos(y))
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _plans_as_port(jbie):
-    """The port's BIE radial plans on an ipde_tpu BIE."""
-    for i, e in enumerate(jbie.ebdyc):
-        for j, (src, ej) in enumerate(zip(jbie.src_list, jbie.ebdyc)):
-            if not (i == j and e.interior):
-                jbie.radial_plans[i][j] = JSRA(src, e.radial_x, e.radial_y,
-                                               k_density=ej.bdy.N // 2,
-                                               max_stride=1)
-    return jbie
-
-
-def _gap(got, want, phys, shift=False):
-    """max |got - want| over the physical grid points and every radial
-    grid, relative to max |want| there; ``shift``: less the mean of
-    got - want on the physical grid (a pressure)."""
-    g, w = _np(got.grid), _np(want.grid)
-    c = (g - w)[phys].mean() if shift else 0.0
-    scale = max(np.abs(w)[phys].max(),
-                max(np.abs(_np(r)).max() for r in want.radials))
-    gap = max(np.abs(g - w - c)[phys].max(),
-              max(np.abs(_np(a) - _np(b) - c).max()
-                  for a, b in zip(got.radials, want.radials)))
-    return gap / scale
-
-
 def _iters_close(st, jst):
     return all(abs(a - int(b)) <= 1 for a, b in
                zip(st["annular_iterations"], jst["annular_iterations"]))
-
-
-def _port(jc, bh):
-    tc = load_collection(jc.save(), "cpu")
-    tc.generate_grid(bh)
-    return tc
 
 
 @pytest.fixture(scope="module")
 def poisson2():
     """Poisson with one inclusion of the interior boundary's (n, M), solved
     by ipde_tpu with solver_type="fourth" (dense grid backend)."""
-    M = 6
-    outer = jstar(64, a=0.1, f=3)
-    inner = jstar(64, x=0.1, y=-0.05, r=0.35, a=0.05, f=3)
-    bh = min(outer.min_h(), inner.min_h(),
-             0.6 / np.abs(inner.curvature).max() / M)
-    jc = JEBC([JEB(outer, True, M, bh), JEB(inner, False, M, bh)])
-    jc.generate_grid(bh)
-    js = JPS(jc, grid_backend="dense", solver_type="fourth")
-    jf = JEF.from_function(jc, pfrc)
-    jraw, jst = js.solve_with_stats(jf, **SOLVE)
-    juf = _plans_as_port(JDBIE(js)).apply_bc(jraw, JBF.from_function(jc,
-                                                                     psol))
-    tc = _port(jc, bh)
-    return dict(jraw=jraw, jst=jst, juf=juf, tc=tc,
-                tf=EmbeddedFunction.load(jf.save(), "cpu"),
+    bodies, bh = tt.two_body()
+    _, tc = tt.paired_collections(bodies, bh)
+    ref = tt.reference_solve(bodies, bh, "poisson", (pfrc,), (psol,),
+                             solver_type="fourth", port_plans=True)
+    return dict(jraw=ref["jraw"], jst=ref["jst"], juf=ref["jue"], tc=tc,
+                tf=EmbeddedFunction.load(ref["jf"][0].save(), "cpu"),
                 tbc=BoundaryFunction.from_function(tc, psol))
 
 
@@ -189,20 +82,16 @@ def test_fourth_poisson_inclusion_lockstep(poisson2, backend, monkeypatch):
 def mh():
     """Yukawa k = 2, one boundary, Neumann data, ipde_tpu's fourth solve
     (dense grid backend)."""
-    M = 6
-    bdy = jstar(64, a=0.1, f=5)
-    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
-    jc = JEBC([JEB(bdy, True, M, bh, qfs_tolerance=1e-14)])
-    jc.generate_grid(bh)
-    js = JMHS(jc, k=KH, grid_backend="dense", solver_type="fourth")
-    jf = JEF.from_function(jc, mfrc)
-    jraw, jst = js.solve_with_stats(jf, **SOLVE)
-    bcn = mdn(jc.ebdys[0].bdy)
-    juf = _plans_as_port(JNBIE(js)).apply_bc(jraw, JBF([jnp.asarray(bcn)]))
-    tc = _port(jc, bh)
-    return dict(jraw=jraw, jst=jst, juf=juf, tc=tc,
-                tf=EmbeddedFunction.load(jf.save(), "cpu"),
-                tbc=BoundaryFunction([torch.as_tensor(bcn)]))
+    bodies = (tt.body(64, 6, qfs_tolerance=1e-14, a=0.1, f=5),)
+    bh = tt.one_body_h(bodies[0])
+    _, tc = tt.paired_collections(bodies, bh)
+    ref = tt.reference_solve(bodies, bh, "mh", (mfrc,), (tt.mgrad,), k=KH,
+                             neumann=True, solver_type="fourth",
+                             port_plans=True)
+    return dict(jraw=ref["jraw"], jst=ref["jst"], juf=ref["jue"], tc=tc,
+                tf=EmbeddedFunction.load(ref["jf"][0].save(), "cpu"),
+                tbc=BoundaryFunction([torch.as_tensor(v)
+                                      for v in ref["jbc"][0].values]))
 
 
 @pytest.mark.parametrize("backend", ["dense", "fft"])
@@ -222,18 +111,13 @@ def test_fourth_yukawa_neumann(mh, backend):
 def stokes():
     """Stokes, one boundary, ipde_tpu's fourth solve (dense grid
     backend)."""
-    M = 6
-    bdy = jstar(64, a=0.1, f=5)
-    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
-    jc = JEBC([JEB(bdy, True, M, bh, qfs_tolerance=1e-12)])
-    jc.generate_grid(bh)
-    js = JSS(jc, grid_backend="dense", solver_type="fourth")
-    jfu, jfv = JEF.from_function(jc, fuf), JEF.from_function(jc, fvf)
-    jraw, jst = js.solve_with_stats(jfu, jfv, **SOLVE)
-    juvp = JSBIE(js).apply_bc(*jraw, JBF.from_function(jc, usol),
-                              JBF.from_function(jc, vsol))
-    tc = _port(jc, bh)
-    return dict(jraw=jraw, jst=jst, juvp=juvp, tc=tc,
+    bodies = (tt.body(64, 6, a=0.1, f=5),)
+    bh = tt.one_body_h(bodies[0])
+    _, tc = tt.paired_collections(bodies, bh)
+    ref = tt.reference_solve(bodies, bh, "stokes", (fuf, fvf), (usol, vsol),
+                             solver_type="fourth")
+    jfu, jfv = ref["jf"]
+    return dict(jraw=ref["jraw"], jst=ref["jst"], juvp=ref["jue"], tc=tc,
                 tfu=EmbeddedFunction.load(jfu.save(), "cpu"),
                 tfv=EmbeddedFunction.load(jfv.save(), "cpu"),
                 tbu=BoundaryFunction.from_function(tc, usol),

@@ -2,22 +2,21 @@
 (curve, grid, coords, cheb, slepian, annular, embedded boundary, singular
 forms) give bit-equal arrays, and the collection and function types built
 on tensors hold the same values, on the problem of
-__graft_entry__.entry() (star(128, a=0.1, f=3), M=8)."""
-
-import time
+__graft_entry__.entry() (star(128, a=0.1, f=3), M=8).  Also the shared
+scaffold of the port's tests (tests/_torch_testing.py): its cached builders
+and its thread fixture."""
 
 import numpy as np
 import pytest
 import torch
 
-import ipde_tpu.native
+import _torch_testing as tt
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.functions import BoundaryFunction as JBF
 from ipde_tpu.functions import EmbeddedFunction as JEF
 from ipde_tpu.geometry.annular import AnnularGeometry as JAG
 from ipde_tpu.geometry.annular import AnnularMetric as JAM
-from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
 from ipde_tpu.geometry.curve import star as jstar
-from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
 from ipde_tpu.ops import singular as jsq
 from ipde_tpu.ops.slepian import SlepianMollifier as JSM
 from ipde_tpu.utils.cheb import ChebyshevOperators as JCO
@@ -42,23 +41,15 @@ def _bh(bdy):
     return min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
 
 
+ENTRY = (tt.body(NB, M, a=0.1, f=3),)
+
+
 @pytest.fixture(scope="module")
 def pair():
-    """The entry() geometry in ipde_tpu and, from its save(), in the port."""
-    # the reference's coordinates come from its native library too (it
-    # falls back to numpy silently when a concurrent build races it)
-    for _ in range(20):
-        if ipde_tpu.native.get_lib() is not None:
-            break
-        time.sleep(0.5)
-    assert ipde_tpu.native.get_lib() is not None
-    bdy = jstar(NB, a=0.1, f=3)
-    bh = _bh(bdy)
-    jc = JEBC([JEB(bdy, True, M, bh, qfs_tolerance=1e-12)])
-    jc.generate_grid(bh)
+    """The entry() geometry in ipde_tpu and, from its save(), in the port,
+    each with its bump ready."""
+    jc, tc = tt.paired_collections(ENTRY, tt.one_body_h(ENTRY[0]))
     jc.ready_bump()
-    tc = load_collection(jc.save(), "cpu")
-    tc.generate_grid(bh)
     tc.ready_bump()
     return jc, tc
 
@@ -184,3 +175,56 @@ def test_functions_match_and_roundtrip(pair):
     assert _same(jf.get_grid_value(jc), tf.get_grid_value(tc))
     assert float(abs(-tf).max()) == float(abs(-jf).max())
     assert float(tf.max_on(tc)) == float(jf.max_on(jc))
+
+
+# ---------------------------------------------------------------------------
+# the scaffold of the port's tests
+# ---------------------------------------------------------------------------
+
+def test_cached_builders_share_equal_problems(monkeypatch):
+    """Equal arguments give the same objects (a default spelled out is
+    the same problem), other arguments other ones; a set-up-backend
+    variable is part of the key."""
+    small = (tt.body(32, 4, a=0.1, f=3),)
+    h = tt.one_body_h(small[0])
+    jc, tc = tt.paired_collections(small, h)
+    assert tt.paired_collections(small, h, pad_quantum=None) == (jc, tc)
+    other = tt.paired_collections((tt.body(32, 4, a=0.05, f=3),), h)
+    assert other[0] is not jc and other[1] is not tc
+    assert tt.paired_collections(small, h, pad_quantum=256)[0] is not jc
+    s = tt.port_solver(small, h, "poisson")
+    assert tt.port_solver(small, h, "poisson", grid_backend="dense") is s
+    assert tt.port_solver(small, h, "poisson", grid_backend="fft") is not s
+    assert s.ebdyc is tc
+    for name in tt.SETUP_VARS:
+        monkeypatch.delenv(name, raising=False)
+    assert tt.paired_collections(small, h)[0] is jc
+    monkeypatch.setenv("IPDE_QFS_BACKEND", "host")
+    assert tt.paired_collections(small, h)[0] is not jc
+    monkeypatch.delenv("IPDE_QFS_BACKEND")
+    assert tt.paired_collections(small, h)[0] is jc
+
+
+def test_thread_fixture_restores_what_it_found():
+    """one_torch_thread holds torch and BLAS to one thread for its module
+    and gives back the counts it found, whatever they were."""
+    threadpoolctl = pytest.importorskip("threadpoolctl")
+
+    def blas():
+        return {p["num_threads"] for p in threadpoolctl.threadpool_info()
+                if p["user_api"] == "blas"}
+
+    assert torch.get_num_threads() == 1 and blas() == {1}
+    outer = torch.get_num_threads()
+    torch.set_num_threads(3)
+    try:
+        with threadpoolctl.threadpool_limits(limits=2, user_api="blas"):
+            gen = tt.one_torch_thread.__wrapped__()
+            next(gen)
+            assert torch.get_num_threads() == 1 and blas() == {1}
+            with pytest.raises(StopIteration):
+                next(gen)
+            assert torch.get_num_threads() == 3 and blas() == {2}
+    finally:
+        torch.set_num_threads(outer)
+    assert blas() == {1}

@@ -27,6 +27,8 @@ import pytest
 import torch
 from scipy.special import k0 as scipy_k0
 
+from _torch_testing import as_np as _np, rel as _rel
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.geometry.grid import Grid as JGrid
 from ipde_tpu.ops import grid_eval as jge
 from ipde_tpu_torch.geometry.grid import Grid
@@ -35,30 +37,6 @@ from ipde_tpu_torch.ops import grid_eval as tge
 # (Nx, Ny) of the evaluator cases: square, and non-square (the padded box
 # is then non-square too)
 GRIDS = [(96, 96), (96, 128)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module.  The tier-1 command runs six
-    workers on eight cores, where torch's OpenMP threads oversubscribe the
-    CPU: the port's CPU paths here then run several times slower than on
-    one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _rel(got, want):
-    got, want = _np(got), _np(want)
-    assert got.shape == want.shape
-    return np.abs(got - want).max() / np.abs(want).max()
 
 
 # ---------------------------------------------------------------------------

@@ -17,31 +17,12 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_testing import cloud as _cloud
+from _torch_testing import cuda_or_skip as _cuda
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.ops import kernels as jax_kernels
 from ipde_tpu.ops import pallas_ds
 from ipde_tpu_torch.ops import kernels
-
-
-def _ds_round(x):
-    hi = x.astype(np.float32).astype(np.float64)
-    lo = (x - hi).astype(np.float32).astype(np.float64)
-    return hi + lo
-
-
-def _cloud(T=700, S=300, seed=0, near=True):
-    rng = np.random.default_rng(seed)
-    sx = np.cos(2 * np.pi * np.arange(S) / S) * (1 + 0.05 * rng.standard_normal(S))
-    sy = np.sin(2 * np.pi * np.arange(S) / S) * (1 + 0.05 * rng.standard_normal(S))
-    r = 0.8 * np.sqrt(rng.uniform(0.01, 1, T))
-    th = rng.uniform(0, 2 * np.pi, T)
-    tx = r * np.cos(th)
-    ty = r * np.sin(th)
-    if near:
-        k = min(32, T, S)
-        tx[:k] = sx[:k] + 10.0 ** rng.uniform(-4, -2, k)
-        ty[:k] = sy[:k] + 10.0 ** rng.uniform(-4, -2, k)
-    q = rng.standard_normal(S) / S
-    return tuple(_ds_round(a) for a in (sx, sy, q, tx, ty))
 
 
 def _plain(args):
@@ -311,12 +292,6 @@ def test_library_key_covers_headers(tmp_path, monkeypatch):
     (csrc / "thing.cu").write_text("// source\n")
     (csrc / "shared.cuh").write_text("// header v1\n")
     assert kernels.library_path("thing") == first
-
-
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-    return torch.device("cuda", 0)
 
 
 def _grad_rel(got, want):

@@ -19,7 +19,7 @@ maps; 1e-13 relative to the largest value for single operator applies (the
 same float64 sums in another order); 1e-10 absolute for whole slices (GMRES
 stops at 1e-12)."""
 
-import time
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,56 +27,32 @@ import pytest
 import torch
 from scipy.special import k0 as scipy_k0
 
-import ipde_tpu.native
-from ipde_tpu.functions import BoundaryFunction as JBF
-from ipde_tpu.functions import EmbeddedFunction as JEF
+import _torch_testing as tt
+from _torch_testing import SOLVE, as_np as _np, cloud, rel as _rel
+from _torch_testing import cuda_or_skip as _cuda
+from _torch_testing import mgrad as grad_sol, msol as sol
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.geometry.annular import AnnularGeometry as JAG
-from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
-from ipde_tpu.geometry.curve import star as jstar
-from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
 from ipde_tpu.ops import kernels as jkernels
 from ipde_tpu.ops import pallas_ds
 from ipde_tpu.solvers import annular_scalar as jann
-from ipde_tpu.solvers.bie import DirichletBIE as JBIE
-from ipde_tpu.solvers.bie import NeumannBIE as JNBIE
-from ipde_tpu.solvers.scalar import ModifiedHelmholtzSolver as JMH
-from ipde_tpu.solvers.scalar import PoissonSolver as JPS
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.geometry.annular import AnnularGeometry
-from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
-                                                load_collection)
+from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
 from ipde_tpu_torch.geometry.curve import star
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import kernels
 from ipde_tpu_torch.qfs import qfs as tqfs
 from ipde_tpu_torch.solvers import annular_scalar as ann
 from ipde_tpu_torch.solvers.bie import DirichletBIE, NeumannBIE
-from ipde_tpu_torch.solvers.scalar import (ModifiedHelmholtzSolver,
-                                           PoissonSolver)
+from ipde_tpu_torch.solvers.scalar import ModifiedHelmholtzSolver
 
 NB, M = 128, 8
-SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module.  The tier-1 command runs six
-    workers on eight cores, where torch's OpenMP threads oversubscribe the
-    CPU: the port's CPU paths here then run several times slower than on
-    one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
+ENTRY = (tt.body(NB, M, a=0.1, f=3),)
 
 
 # the manufactured solution of tests/test_interior_mh.py and test_neumann.py
-def sol(x, y):
-    return np.exp(np.sin(x)) * np.sin(2 * y) + 0.3 * np.cos(3 * x) * np.cos(y)
-
-
+# is tt.msol; its Laplacian here as those files write it
 def lap_sol(x, y):
     u1 = np.exp(np.sin(x)) * np.sin(2 * y)
     u1xx = np.exp(np.sin(x)) * (np.cos(x) ** 2 - np.sin(x)) * np.sin(2 * y)
@@ -84,51 +60,17 @@ def lap_sol(x, y):
     return u1xx - 4 * u1 - 10 * u2
 
 
-def grad_sol(x, y):
-    ux = (np.cos(x) * np.exp(np.sin(x)) * np.sin(2 * y)
-          - 0.9 * np.sin(3 * x) * np.cos(y))
-    uy = 2 * np.exp(np.sin(x)) * np.cos(2 * y) - 0.3 * np.cos(3 * x) * np.sin(y)
-    return ux, uy
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _rel(got, want):
-    got, want = _np(got), _np(want)
-    assert got.shape == want.shape
-    return np.abs(got - want).max() / np.abs(want).max()
-
-
-def _ds_round(x):
-    hi = x.astype(np.float32).astype(np.float64)
-    lo = (x - hi).astype(np.float32).astype(np.float64)
-    return hi + lo
-
-
-def _cloud(T=700, S=300, seed=5, near=True):
-    """tests/test_pallas_ds.py's near-coincident cloud (sx, sy, q, tx, ty)."""
-    rng = np.random.default_rng(seed)
-    sx = np.cos(2 * np.pi * np.arange(S) / S) * (1 + 0.05 * rng.standard_normal(S))
-    sy = np.sin(2 * np.pi * np.arange(S) / S) * (1 + 0.05 * rng.standard_normal(S))
-    r = 0.8 * np.sqrt(rng.uniform(0.01, 1, T))
-    th = rng.uniform(0, 2 * np.pi, T)
-    tx = r * np.cos(th)
-    ty = r * np.sin(th)
-    if near:
-        k = min(32, T, S)
-        tx[:k] = sx[:k] + 10.0 ** rng.uniform(-4, -2, k)
-        ty[:k] = sy[:k] + 10.0 ** rng.uniform(-4, -2, k)
-    q = rng.standard_normal(S) / S
-    return tuple(_ds_round(a) for a in (sx, sy, q, tx, ty))
+@functools.lru_cache(maxsize=None)
+def _forcing(k):
+    """k^2 sol - lap sol (k None: lap sol, the Poisson forcing), one
+    function object per k."""
+    if k is None:
+        return lap_sol
+    return lambda x, y: k ** 2 * sol(x, y) - lap_sol(x, y)
 
 
 def _mms_err(ebdyc, ue):
-    e = ebdyc.ebdys[0]
-    g = np.abs(_np(ue.grid) - sol(ebdyc.grid.xg, ebdyc.grid.yg))[ebdyc.phys]
-    r = np.abs(_np(ue.radials[0]) - sol(e.radial_x, e.radial_y))
-    return max(g.max(), r.max())
+    return tt.mms_err(ebdyc, ue, sol)
 
 
 # ---------------------------------------------------------------------------
@@ -243,7 +185,7 @@ def test_spatial_order_is_a_permutation(T, cell):
 
 @pytest.mark.parametrize("k", [2.0, 100.0])
 def test_plain_apply_unchanged_under_spatial_order(k):
-    sx, sy, q, tx, ty = map(torch.as_tensor, _cloud(T=900, S=200, seed=8))
+    sx, sy, q, tx, ty = map(torch.as_tensor, cloud(T=900, S=200, seed=8))
     perm = kernels.spatial_order(tx, ty)
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(perm.numel())
@@ -255,7 +197,7 @@ def test_plain_apply_unchanged_under_spatial_order(k):
 
 @pytest.mark.parametrize("k", [1.0, 20.0])
 def test_mh_plain_matches_scipy(k):
-    sx, sy, q, tx, ty = _cloud()
+    sx, sy, q, tx, ty = cloud(seed=5)
     got = _np(kernels.mh_slp_apply(*map(torch.as_tensor, (sx, sy, q, tx, ty)),
                                    k))
     r = np.sqrt((tx[:, None] - sx) ** 2 + (ty[:, None] - sy) ** 2)
@@ -266,14 +208,14 @@ def test_mh_plain_matches_scipy(k):
 @pytest.mark.parametrize("k,seed,near", [(1.0, 5, True), (20.0, 6, False),
                                          (100.0, 7, True)])
 def test_mh_plain_matches_xla_path(k, seed, near):
-    args = _cloud(seed=seed, near=near)
+    args = cloud(seed=seed, near=near)
     want = np.asarray(jkernels.mh_slp_apply(*map(jnp.asarray, args), k))
     got = _np(kernels.mh_slp_apply(*map(torch.as_tensor, args), k))
     assert np.abs(got - want).max() < 1e-12
 
 
 def test_grad_plain_matches_xla_path_and_numpy():
-    sx, sy, q, tx, ty = _cloud(seed=1)
+    sx, sy, q, tx, ty = cloud(seed=1)
     gx, gy = map(_np, kernels.laplace_slp_grad_apply(
         *map(torch.as_tensor, (sx, sy, q, tx, ty))))
     dx = tx[:, None] - sx
@@ -290,7 +232,7 @@ def test_grad_plain_matches_xla_path_and_numpy():
 
 
 def test_wrappers_check_and_take_the_cpu_route():
-    sx, sy, q, tx, ty = (torch.as_tensor(a) for a in _cloud(T=64, S=32))
+    sx, sy, q, tx, ty = (torch.as_tensor(a) for a in cloud(T=64, S=32, seed=5))
     before = (kernels.mh_slp_apply.launches,
               kernels.laplace_slp_grad_apply.launches)
     out = kernels.mh_slp_apply(sx, sy, q, tx, ty, 3.0)
@@ -318,46 +260,22 @@ def test_wrappers_check_and_take_the_cpu_route():
 # the slices, from one saved geometry
 # ---------------------------------------------------------------------------
 
-def _wait_native():
-    for _ in range(20):   # see test_torch_geometry.pair
-        if ipde_tpu.native.get_lib() is not None:
-            break
-        time.sleep(0.5)
-    assert ipde_tpu.native.get_lib() is not None
-
-
 def _build(k, neumann):
     """The problem solved by ipde_tpu (dense grid backend), and the port's
     solver and BIE built from the saved geometry.  k None: Poisson."""
-    _wait_native()
-    bdy = jstar(NB, a=0.1, f=3)
-    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
-    jc = JEBC([JEB(bdy, True, M, bh, qfs_tolerance=1e-12)])
-    jc.generate_grid(bh)
-    if k is None:
-        frc = lap_sol
-        js = JPS(jc, grid_backend="dense")
-    else:
-        frc = lambda x, y: k ** 2 * sol(x, y) - lap_sol(x, y)  # noqa: E731
-        js = JMH(jc, k=k, grid_backend="dense")
-    jf = JEF.from_function(jc, frc)
-    if neumann:
-        ux, uy = grad_sol(bdy.x, bdy.y)
-        jbc = JBF([ux * bdy.normal_x + uy * bdy.normal_y])
-        jb = JNBIE(js)
-    else:
-        jbc = JBF.from_function(jc, sol)
-        jb = JBIE(js)
-    jue_raw, jst = js.solve_with_stats(jf, **SOLVE)
-    jue = jb.apply_bc(jue_raw, jbc)
-    tc = load_collection(jc.save(), "cpu")
-    tc.generate_grid(bh)
-    ts = (PoissonSolver(tc, grid_backend="dense") if k is None
-          else ModifiedHelmholtzSolver(tc, k=k, grid_backend="dense"))
-    tb = (NeumannBIE if neumann else DirichletBIE)(ts)
-    tbc = BoundaryFunction([torch.tensor(np.asarray(v)) for v in jbc.values])
-    return dict(jc=jc, js=js, jb=jb, jue_raw=jue_raw, jue=jue, jst=jst, tc=tc,
-                ts=ts, tb=tb, tf=EmbeddedFunction.load(jf.save(), "cpu"),
+    h = tt.one_body_h(ENTRY[0])
+    jc, tc = tt.paired_collections(ENTRY, h)
+    pde = "poisson" if k is None else "mh"
+    bc = grad_sol if neumann else sol
+    ref = tt.reference_solve(ENTRY, h, pde, (_forcing(k),), (bc,), k=k,
+                             neumann=neumann)
+    tbc = BoundaryFunction([torch.tensor(np.asarray(v))
+                            for v in ref["jbc"][0].values])
+    return dict(jc=jc, js=ref["js"], jb=ref["jb"], jue_raw=ref["jraw"],
+                jue=ref["jue"], jst=ref["jst"], tc=tc,
+                ts=tt.port_solver(ENTRY, h, pde, k=k),
+                tb=tt.port_bie(ENTRY, h, pde, k=k, neumann=neumann),
+                tf=EmbeddedFunction.load(ref["jf"][0].save(), "cpu"),
                 tbc=tbc)
 
 
@@ -523,12 +441,6 @@ def test_port_mms(nb, Mr, neumann, limit):
 # on the card
 # ---------------------------------------------------------------------------
 
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-    return torch.device("cuda", 0)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("T,S,seed,k", [(700, 300, 5, 1.0), (700, 300, 5, 20.0),
                                         (70001, 3001, 4, 2.0), (1, 1, 6, 2.0),
@@ -536,7 +448,7 @@ def _cuda():
 def test_cuda_kernels_match_plain(T, S, seed, k):
     dev = _cuda()
     sx, sy, q, tx, ty = (torch.as_tensor(a, device=dev)
-                         for a in _cloud(T=T, S=S, seed=seed))
+                         for a in cloud(T=T, S=S, seed=seed))
     before = kernels.mh_slp_apply.launches
     got = kernels.mh_slp_apply(sx, sy, q, tx, ty, k)
     torch.cuda.synchronize()
@@ -580,7 +492,7 @@ def test_cuda_kernel_split_and_ragged_shapes(T, S, seed, k):
     tile: within 1e-12 of the plain version, and two runs bit-equal."""
     dev = _cuda()
     args = [torch.as_tensor(a, device=dev)
-            for a in _cloud(T=T, S=S, seed=seed)]
+            for a in cloud(T=T, S=S, seed=seed)]
     if S >= 64:
         assert (kernels.split_count("mh_slp", T, S) > 1) == (T <= 270336)
     got = kernels.mh_slp_apply(*args, k)

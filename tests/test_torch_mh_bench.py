@@ -15,6 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_testing import one_torch_thread  # noqa: F401
+
 from perfbench.harness import problem, spec
 from perfbench.harness.planstep import plan_step
 from perfbench.harness.traffic import Schedule
@@ -35,18 +37,6 @@ SEEDS = (7, 2 ** 31 + 5)
 # place of 1 / (k^2 - lap) 0.68: 1e-4 lies 17x above the first and 500x
 # below the others
 STEP_TOL = 1e-4
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module: the tier-1 command runs six
-    workers on eight cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("seed", SEEDS)

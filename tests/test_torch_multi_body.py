@@ -23,16 +23,19 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+import _torch_testing as tt
+from _torch_testing import SOLVE, as_np as _np, mms_err
+from _torch_testing import cuda_or_skip as _cuda
+from _torch_testing import mgrad as grad_sol, msol as sol
+from _torch_testing import one_torch_thread  # noqa: F401
+from _torch_testing import plans_as_port as _plans_as_port
+from _torch_testing import rel_gap as _gap
 from ipde_tpu.functions import BoundaryFunction as JBF
 from ipde_tpu.functions import EmbeddedFunction as JEF
-from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
-from ipde_tpu.geometry.curve import squished_circle as jsquished
 from ipde_tpu.geometry.curve import star as jstar
 from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
-from ipde_tpu.ops.stratified import StratifiedRadialApply as JSRA
 from ipde_tpu.solvers.bie import DirichletBIE as JDBIE
 from ipde_tpu.solvers.bie import NeumannBIE as JNBIE
-from ipde_tpu.solvers.scalar import ModifiedHelmholtzSolver as JMHS
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.geometry.collection import load_collection
 from ipde_tpu_torch.solvers import scalar as tscalar
@@ -40,90 +43,20 @@ from ipde_tpu_torch.solvers.bie import DirichletBIE, NeumannBIE
 from ipde_tpu_torch.solvers.scalar import ModifiedHelmholtzSolver
 
 KH = 2.0
-SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module.  The tier-1 command runs six
-    workers on eight cores, where torch's OpenMP threads oversubscribe the
-    CPU: the port's small CPU paths here then run many times slower than on
-    one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-# the manufactured solution of tests/test_multi_body.py
-def sol(x, y):
-    return np.exp(np.sin(x)) * np.sin(2 * y) + 0.3 * np.cos(3 * x) * np.cos(y)
-
-
-def lap_sol(x, y):
-    u1 = np.exp(np.sin(x)) * np.sin(2 * y)
-    u1xx = np.exp(np.sin(x)) * (np.cos(x) ** 2 - np.sin(x)) * np.sin(2 * y)
-    return u1xx - 4 * u1 - 10 * 0.3 * np.cos(3 * x) * np.cos(y)
-
-
-def grad_sol(x, y):
-    ux = (np.cos(x) * np.exp(np.sin(x)) * np.sin(2 * y)
-          - 0.9 * np.sin(3 * x) * np.cos(y))
-    uy = (2 * np.exp(np.sin(x)) * np.cos(2 * y)
-          - 0.3 * np.cos(3 * x) * np.sin(y))
-    return ux, uy
-
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _plans_as_port(jbie):
-    """Give an ipde_tpu BIE the port's radial plans: every source, except
-    on an interior boundary's own rows (solvers/bie.py::_radial_plans)."""
-    for i, e in enumerate(jbie.ebdyc):
-        for j, (src, ej) in enumerate(zip(jbie.src_list, jbie.ebdyc)):
-            if not (i == j and e.interior):
-                jbie.radial_plans[i][j] = JSRA(src, e.radial_x, e.radial_y,
-                                               k_density=ej.bdy.N // 2,
-                                               max_stride=1)
-    return jbie
-
-
-def _gap(got, want, phys):
-    """max |got - want| over the physical grid points and every radial
-    grid, relative to max |want| there."""
-    g, w = _np(got.grid), _np(want.grid)
-    scale = max(np.abs(w)[phys].max(),
-                max(np.abs(_np(r)).max() for r in want.radials))
-    gap = max(np.abs(g - w)[phys].max(),
-              max(np.abs(_np(a) - _np(b)).max()
-                  for a, b in zip(got.radials, want.radials)))
-    return gap / scale
-
-
-def _err(ef, ebdyc, f):
-    """max |ef - f| over the physical grid points and radial nodes."""
-    g = ebdyc.grid
-    return max(np.abs(_np(ef.grid) - f(g.xg, g.yg))[ebdyc.phys].max(),
-               max(np.abs(_np(r) - f(e.radial_x, e.radial_y)).max()
-                   for r, e in zip(ef.radials, ebdyc.ebdys)))
 
 
 def _mh3_collection(nb=48, M=6):
-    """tests/test_multi_body.py's geometry at nb=48 (72 + 48 + 48 points)."""
-    b1 = jstar(3 * nb // 2, a=0.1, f=5, r=2.0)
-    b2 = jstar(nb, x=-0.8, y=-0.5, a=0.1, f=3, r=0.45)
-    b3 = jsquished(nb, x=0.7, y=0.6, r=0.5, b=0.7, rot=np.pi / 5)
-    kmax = max(np.abs(b.curvature).max() for b in (b1, b2, b3))
-    bh = min(min(b.min_h() for b in (b1, b2, b3)), 0.6 / kmax / M)
-    jc = JEBC([JEB(b, b is b1, M, bh, qfs_tolerance=1e-14)
-               for b in (b1, b2, b3)])
-    jc.generate_grid(bh)
-    return jc, bh
+    """tests/test_multi_body.py's geometry at nb=48 (72 + 48 + 48 points):
+    (Bodies, h)."""
+    bodies = (tt.body(3 * nb // 2, M, qfs_tolerance=1e-14, a=0.1, f=5,
+                      r=2.0),
+              tt.body(nb, M, False, 1e-14, x=-0.8, y=-0.5, a=0.1, f=3,
+                      r=0.45),
+              tt.body(nb, M, False, 1e-14, "squished_circle", x=0.7, y=0.6,
+                      r=0.5, b=0.7, rot=np.pi / 5))
+    curves = [tt.jcurve(b) for b in bodies]
+    kmax = max(np.abs(b.curvature).max() for b in curves)
+    return bodies, min(min(b.min_h() for b in curves), 0.6 / kmax / M)
 
 
 @pytest.fixture(scope="module")
@@ -131,22 +64,18 @@ def mh3():
     """Three-body Yukawa, k = 2, dense grid backend, solved by ipde_tpu;
     the port's solver from the saved geometry; both packages' DirichletBIE
     (ipde_tpu's own radial strides kept aside, then the port's plans)."""
-    jc, bh = _mh3_collection()
-    js = JMHS(jc, k=KH, grid_backend="dense")
-    jf = JEF.from_function(jc, lambda x, y: KH**2 * sol(x, y)
-                           - lap_sol(x, y))
+    bodies, bh = _mh3_collection()
+    jc, tc = tt.paired_collections(bodies, bh)
+    js = tt.reference_solver(bodies, bh, "mh", k=KH)
+    jf = JEF.from_function(jc, tt.mh_forcing(KH))
     jraw, jst = js.solve_with_stats(jf, **SOLVE)
     jd = JDBIE(js)
     jstrides = [[p.strides.copy() for p in row] for row in jd.radial_plans]
-    tc = load_collection(jc.save(), "cpu")
-    tc.generate_grid(bh)
     ts = ModifiedHelmholtzSolver(tc, k=KH, grid_backend="dense")
     tf = EmbeddedFunction.load(jf.save(), "cpu")
     traw, tst = ts.solve_with_stats(tf, **SOLVE)
     # du/dn of the manufactured solution on each boundary
-    bcn = [sum(g * n for g, n in zip(grad_sol(e.bdy.x, e.bdy.y),
-                                     (e.bdy.normal_x, e.bdy.normal_y)))
-           for e in tc]
+    bcn = tt.normal_derivative(tc, grad_sol)
     return dict(jc=jc, js=js, jraw=jraw, jst=jst, jd=_plans_as_port(jd),
                 jstrides=jstrides, tc=tc, ts=ts, tf=tf, traw=traw, tst=tst,
                 td=DirichletBIE(ts), jbc=JBF.from_function(jc, sol),
@@ -176,7 +105,7 @@ def test_three_body_mh_dirichlet(mh3):
     tc = mh3["tc"]
     assert _gap(got, want, tc.phys) <= 1e-10
     # the manufactured solution, to the accuracy ipde_tpu reaches
-    err, jerr = _err(got, tc, sol), _err(want, tc, sol)
+    err, jerr = mms_err(tc, got, sol), mms_err(tc, want, sol)
     assert err <= 1.01 * jerr + 1e-12
 
 
@@ -188,7 +117,7 @@ def test_three_body_mh_neumann(mh3):
                                        for v in mh3["bcn"]]))
     tc = mh3["tc"]
     assert _gap(got, want, tc.phys) <= 1e-10
-    assert _err(got, tc, sol) <= 1.01 * _err(want, tc, sol) + 1e-12
+    assert mms_err(tc, got, sol) <= 1.01 * mms_err(tc, want, sol) + 1e-12
 
 
 def test_ipde_tpu_subsamples_the_cross_plans(mh3):
@@ -237,12 +166,6 @@ def test_exterior_geometry_ops():
 # on the card
 # ---------------------------------------------------------------------------
 
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-    return torch.device("cuda", 0)
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("backend", ["dense", "fft"])
 def test_three_body_mh_on_cuda_matches_cpu(mh3, backend, monkeypatch):
@@ -259,8 +182,7 @@ def test_three_body_mh_on_cuda_matches_cpu(mh3, backend, monkeypatch):
         tc.generate_grid(tc.ebdys[0].h)
         ts = ModifiedHelmholtzSolver(tc, k=KH, grid_backend=backend)
         bie = DirichletBIE(ts)
-        f = EmbeddedFunction.from_function(
-            tc, lambda x, y: KH**2 * sol(x, y) - lap_sol(x, y))
+        f = EmbeddedFunction.from_function(tc, tt.mh_forcing(KH))
         calls = []
         orig = K.mh_slp_apply
 

@@ -25,79 +25,18 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-from ipde_tpu.functions import BoundaryFunction as JBF
-from ipde_tpu.functions import EmbeddedFunction as JEF
-from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
-from ipde_tpu.geometry.curve import star as jstar
-from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
-from ipde_tpu.ops.stratified import StratifiedRadialApply as JSRA
+import _torch_testing as tt
+from _torch_testing import SOLVE, as_np as _np, rel as _rel
+from _torch_testing import cuda_or_skip as _cuda
+from _torch_testing import fuf, fvf, usol, vsol
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.solvers import annular_stokes as jann
-from ipde_tpu.solvers.bie import StokesDirichletBIE as JSBIE
-from ipde_tpu.solvers.vector import StokesSolver as JSS
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.geometry.collection import load_collection
 from ipde_tpu_torch.solvers import annular_stokes as ann
 from ipde_tpu_torch.solvers import vector as tvector
 from ipde_tpu_torch.solvers.bie import StokesDirichletBIE
 from ipde_tpu_torch.solvers.vector import StokesSolver
-
-SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module.  The tier-1 command runs six
-    workers on eight cores, where torch's OpenMP threads oversubscribe the
-    CPU: the port's small CPU paths here then run many times slower than on
-    one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-# the manufactured solution of examples/stokes_refinement.py
-def usol(x, y):
-    return np.sin(x) * np.cos(y) + 0.2 * np.cos(2 * y)
-
-
-def vsol(x, y):
-    return -np.cos(x) * np.sin(y) + 0.1 * np.sin(2 * x)
-
-
-def fuf(x, y):
-    return (2 * np.sin(x) * np.cos(y) + 0.8 * np.cos(2 * y)
-            - np.sin(x) * np.sin(y))
-
-
-def fvf(x, y):
-    return (-2 * np.cos(x) * np.sin(y) + 0.4 * np.sin(2 * x)
-            + np.cos(x) * np.cos(y))
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _rel(got, want):
-    got, want = _np(got), _np(want)
-    assert got.shape == want.shape
-    return np.abs(got - want).max() / np.abs(want).max()
-
-
-def _plans_as_port(jbie):
-    """The port's BIE radial plans on an ipde_tpu BIE (see
-    tests/test_torch_multi_body.py::_plans_as_port)."""
-    for i, e in enumerate(jbie.ebdyc):
-        for j, (src, ej) in enumerate(zip(jbie.src_list, jbie.ebdyc)):
-            if not (i == j and e.interior):
-                jbie.radial_plans[i][j] = JSRA(src, e.radial_x, e.radial_y,
-                                               k_density=ej.bdy.N // 2,
-                                               max_stride=1)
-    return jbie
-
 
 def _uvp_gap(got, want, phys):
     """max over u, v of |got - want| relative to max |want|, and for p the
@@ -117,20 +56,15 @@ def _uvp_gap(got, want, phys):
 
 
 def _problem(bodies, bh):
-    """ipde_tpu's dense solve + BIE (port's plans) of the EmbeddedBoundaries
+    """ipde_tpu's dense solve + BIE (port's plans) of the Bodies
     ``bodies``, and the port's collection and data from the saved
     geometry."""
-    jc = JEBC(bodies)
-    jc.generate_grid(bh)
-    js = JSS(jc, grid_backend="dense")
-    jb = _plans_as_port(JSBIE(js))
-    jfu, jfv = JEF.from_function(jc, fuf), JEF.from_function(jc, fvf)
-    jraw, jst = js.solve_with_stats(jfu, jfv, **SOLVE)
-    juvp = jb.apply_bc(*jraw, JBF.from_function(jc, usol),
-                       JBF.from_function(jc, vsol))
-    tc = load_collection(jc.save(), "cpu")
-    tc.generate_grid(bh)
-    return dict(jc=jc, js=js, jb=jb, jraw=jraw, jst=jst, juvp=juvp, tc=tc,
+    jc, tc = tt.paired_collections(bodies, bh)
+    ref = tt.reference_solve(bodies, bh, "stokes", (fuf, fvf), (usol, vsol),
+                             port_plans=True)
+    jfu, jfv = ref["jf"]
+    return dict(jc=jc, js=ref["js"], jb=ref["jb"], jraw=ref["jraw"],
+                jst=ref["jst"], juvp=ref["jue"], tc=tc,
                 tfu=EmbeddedFunction.load(jfu.save(), "cpu"),
                 tfv=EmbeddedFunction.load(jfv.save(), "cpu"),
                 tbc=(BoundaryFunction.from_function(tc, usol),
@@ -151,26 +85,21 @@ def three():
     """examples/stokes_refinement.py::run_case's geometry at nb=64, M=6
     (inclusions of 32 points, M=4)."""
     nb, M, Mi = 64, 6, 4
-    outer = jstar(nb, a=0.1, f=3)
+    bodies = (tt.body(nb, M, a=0.1, f=3),
+              tt.body(nb // 2, Mi, False, x=0.3, y=0.18, r=0.16, a=0.05,
+                      f=4),
+              tt.body(nb // 2, Mi, False, x=-0.28, y=-0.22, r=0.15, a=0.05,
+                      f=3))
+    outer = tt.jcurve(bodies[0])
     bh = min(outer.min_h(), 0.6 / np.abs(outer.curvature).max() / M,
              0.16 / M)
-    return _problem([
-        JEB(outer, True, M, bh),
-        JEB(jstar(nb // 2, x=0.3, y=0.18, r=0.16, a=0.05, f=4), False, Mi,
-            bh),
-        JEB(jstar(nb // 2, x=-0.28, y=-0.22, r=0.15, a=0.05, f=3), False,
-            Mi, bh)], bh)
+    return _problem(bodies, bh)
 
 
 @pytest.fixture(scope="module")
 def two():
     """An interior star and one inclusion of its (n, M) = (64, 6)."""
-    M = 6
-    outer = jstar(64, a=0.1, f=3)
-    inner = jstar(64, x=0.1, y=-0.05, r=0.35, a=0.05, f=3)
-    bh = min(outer.min_h(), inner.min_h(),
-             0.6 / np.abs(inner.curvature).max() / M)
-    return _problem([JEB(outer, True, M, bh), JEB(inner, False, M, bh)], bh)
+    return _problem(*tt.two_body())
 
 
 def test_three_body_stokes(three, monkeypatch):
@@ -287,12 +216,6 @@ def test_batched_stokes_solve_matches_reference(two):
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-    return torch.device("cuda", 0)
-
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("backend", ["dense", "fft"])

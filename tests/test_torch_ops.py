@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_testing import assert_close as _close
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.ops import fourier as jfourier
 from ipde_tpu.ops import interp as jinterp
 from ipde_tpu.ops.cx import Cx
@@ -18,14 +20,6 @@ from ipde_tpu.ops.gmres import gmres as jgmres
 from ipde_tpu_torch.ops import fourier, interp
 from ipde_tpu_torch.ops.gmres import gmres
 from ipde_tpu_torch.utils import profiling
-
-
-def _close(got, want, rtol=1e-13):
-    got = got.cpu().numpy() if isinstance(got, torch.Tensor) else got
-    want = np.asarray(want)
-    assert got.shape == want.shape
-    err = np.abs(got - want).max() / np.abs(want).max()
-    assert err < rtol, err
 
 
 def _cx(c: torch.Tensor):

@@ -25,6 +25,7 @@ import torch
 from scipy.special import exp1, k0 as K0
 
 import jax.numpy as jnp
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.geometry.grid import Grid as JGrid
 from ipde_tpu.ops.grid_eval import PeriodicGridEvaluator as JPGE
 from ipde_tpu.ops.kernels import expint_e1 as jexpint_e1
@@ -37,17 +38,6 @@ L = 2 * np.pi
 N = 128
 H = L / N
 KAPPA = 4.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module (see tests/test_torch_multi_body.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _sources():

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
 from ipde_tpu_torch.geometry.curve import star
@@ -43,18 +44,6 @@ SOLVERS = {"laplace": (PoissonSolver, DirichletBIE),
 # before capacities existed
 EXACT = {"laplace": ((8192, 192), (4096, 2), (64, 64)),
          "stokes": ((28672, 384), (12288, 4), (64, 64))}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module: the tier-1 command runs six
-    workers on eight cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 def _h():

@@ -21,13 +21,14 @@ capture of a small Poisson and Stokes solve with no synchronizing call
 eager solve, ``replan`` on the card, the planified stepper, and each kernel
 replayed in a CUDA graph against its plain version."""
 
-import time
-
 import numpy as np
 import pytest
 import torch
 
-import ipde_tpu.native
+import _torch_testing as tt
+from _torch_testing import as_np as _np, cuda_or_skip
+from _torch_testing import one_torch_thread  # noqa: F401
+from _torch_testing import pfrc as frc, psol as sol
 from ipde_tpu.functions import BoundaryFunction as JBF
 from ipde_tpu.functions import EmbeddedFunction as JEF
 from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
@@ -53,31 +54,6 @@ from ipde_tpu_torch.utils.planify import PlanStore, planified, replan
 
 NB, M = 96, 6
 SOLVE = dict(tol=1e-12)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module: the tier-1 command runs six
-    workers on eight cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-def sol(x, y):
-    return -np.cos(x) * np.exp(np.sin(x)) * np.sin(y)
-
-
-def frc(x, y):
-    return ((2.0 * np.cos(x) + 3.0 * np.cos(x) * np.sin(x) - np.cos(x) ** 3)
-            * np.exp(np.sin(x)) * np.sin(y))
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _jproblem(nb):
@@ -107,10 +83,7 @@ def _step(solver, bie, bc):
 
 @pytest.fixture(scope="module")
 def problem():
-    for _ in range(20):   # see test_torch_geometry.pair
-        if ipde_tpu.native.get_lib() is not None:
-            break
-        time.sleep(0.5)
+    tt.wait_native()
     jc, js, jb, bh = _jproblem(NB)
     jf, jbc = JEF.from_function(jc, frc), JBF.from_function(jc, sol)
     tc, ts, tb = _port(jc, bh)
@@ -398,11 +371,6 @@ def test_planified_stepper_matches_eager():
 # on the card
 # ---------------------------------------------------------------------------
 
-def _need_cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-
-
 def _stokes_problem(device):
     from ipde_tpu_torch.solvers.bie import StokesDirichletBIE
     from ipde_tpu_torch.solvers.vector import StokesSolver
@@ -442,7 +410,7 @@ def _poisson_card(problem):
 @pytest.mark.gpu
 @pytest.mark.parametrize("pde", ["poisson", "stokes"])
 def test_capture_has_no_sync_and_replays_bit_equal(problem, pde):
-    _need_cuda()
+    cuda_or_skip()
     s, b, fn, args = (_poisson_card(problem) if pde == "poisson"
                       else _stokes_problem("cuda"))
     want, wst = fn(*args)                  # warm: first-use work done here
@@ -464,7 +432,7 @@ def test_capture_has_no_sync_and_replays_bit_equal(problem, pde):
 
 @pytest.mark.gpu
 def test_replan_on_the_card(problem):
-    _need_cuda()
+    cuda_or_skip()
     s, b, fn, args = _poisson_card(problem)
     run = planified(fn, s, b)
     run(*args)
@@ -483,7 +451,7 @@ def test_replan_on_the_card(problem):
 
 @pytest.mark.gpu
 def test_planified_stepper_on_the_card():
-    _need_cuda()
+    cuda_or_skip()
     eager, ce = _two_steps("cuda", False)
     plan, cp = _two_steps("cuda", True)
     assert plan.recompiles == 0
@@ -492,7 +460,7 @@ def test_planified_stepper_on_the_card():
 
 @pytest.mark.gpu
 def test_kernels_replayed_in_a_graph():
-    _need_cuda()
+    cuda_or_skip()
     from ipde_tpu_torch.ops import kernels as K
     from ipde_tpu_torch.ops import stokes_kernels as SK
     rng = np.random.default_rng(4)

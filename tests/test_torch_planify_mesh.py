@@ -33,12 +33,14 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_testing import SOLVE, as_np as _np, plans_as_port
+from _torch_testing import cards_or_skip as _cards
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.functions import BoundaryFunction as JBF
 from ipde_tpu.functions import EmbeddedFunction as JEF
 from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
 from ipde_tpu.geometry.curve import star as jstar
 from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
-from ipde_tpu.ops.stratified import StratifiedRadialApply as JSRA
 from ipde_tpu.parallel import sharded as jsh
 from ipde_tpu.solvers.bie import DirichletBIE as JDBIE
 from ipde_tpu.solvers.scalar import PoissonSolver as JPS
@@ -59,25 +61,8 @@ from ipde_tpu_torch.solvers.vector import StokesSolver
 from ipde_tpu_torch.utils.planify import launch_book, planified, replan
 
 NB, M = 64, 6
-SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
 CPU4 = ["cpu"] * 4
 TURN = 0.01          # the rebuilt problem's inclusion, turned
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module: the tier-1 command runs six
-    workers on eight cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _curves(star_fn, nb, rot=0.0):
@@ -94,14 +79,7 @@ def _jproblem(nb):
                JEB(inc, False, M, bh, qfs_tolerance=1e-12)])
     jc.generate_grid(bh)
     js = JPS(jc, grid_backend="dense")
-    jb = JDBIE(js)
-    for i, e in enumerate(jb.ebdyc):
-        for j, (src, ej) in enumerate(zip(jb.src_list, jb.ebdyc)):
-            if not (i == j and e.interior):
-                jb.radial_plans[i][j] = JSRA(src, e.radial_x, e.radial_y,
-                                             k_density=ej.bdy.N // 2,
-                                             max_stride=1)
-    return jc, js, jb, bh
+    return jc, js, plans_as_port(JDBIE(js)), bh
 
 
 def _collection(rot=0.0, nb=NB, device="cpu"):
@@ -247,12 +225,6 @@ def test_stokes_and_yukawa_planified_under_the_mesh(pde, turned):
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-
-def _cards():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-
 
 def _card_mesh(cards, n=4):
     return make_mesh(devices=[cards[i % len(cards)] for i in range(n)])

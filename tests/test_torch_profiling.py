@@ -15,6 +15,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
 from ipde_tpu_torch.geometry.curve import star
@@ -26,18 +27,6 @@ from ipde_tpu_torch.utils import profiling
 from ipde_tpu_torch.utils.planify import planified, replan
 
 NB, M, PQ = 48, 8, 256
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module: the tier-1 command runs six
-    workers on eight cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

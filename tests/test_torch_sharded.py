@@ -31,21 +31,16 @@ import numpy as np
 import pytest
 import torch
 
-from ipde_tpu.functions import BoundaryFunction as JBF
-from ipde_tpu.functions import EmbeddedFunction as JEF
-from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
-from ipde_tpu.geometry.curve import star as jstar
-from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
+import _torch_testing as tt
+from _torch_testing import SOLVE, as_np as _np
+from _torch_testing import cards_or_skip as _cards
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.ops import kernels as jk
-from ipde_tpu.ops.stratified import StratifiedRadialApply as JSRA
 from ipde_tpu.parallel import sharded as jsh
-from ipde_tpu.solvers.bie import DirichletBIE as JDBIE
-from ipde_tpu.solvers.scalar import PoissonSolver as JPS
 from ipde_tpu_torch.entry import build_problem, dryrun_multichip, frc, sol
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
 from ipde_tpu_torch.geometry.annular import AnnularGeometry, AnnularMetric
-from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
-                                                load_collection)
+from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
 from ipde_tpu_torch.geometry.curve import star
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import kernels as tk
@@ -62,27 +57,9 @@ from ipde_tpu_torch.solvers.scalar import (ModifiedHelmholtzSolver,
                                            PoissonSolver)
 from ipde_tpu_torch.solvers.vector import StokesSolver
 
-SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
 CPU4 = ["cpu"] * 4
 K_MH = 3.0
 APPLIES = ("laplace", "source_laplace", "mh", "stokes")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module: the tier-1 command runs six
-    workers on eight cores, where torch's OpenMP threads oversubscribe the
-    CPU."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def _pts(S=37, T=101):
@@ -285,18 +262,6 @@ def test_batched_stokes_solve_boundary_axis():
 # whole slices under use_mesh
 # ---------------------------------------------------------------------------
 
-def _plans_as_port(jbie):
-    """The port's BIE radial plans on an ipde_tpu BIE (see
-    tests/test_torch_multi_body.py::_plans_as_port)."""
-    for i, e in enumerate(jbie.ebdyc):
-        for j, (src, ej) in enumerate(zip(jbie.src_list, jbie.ebdyc)):
-            if not (i == j and e.interior):
-                jbie.radial_plans[i][j] = JSRA(src, e.radial_x, e.radial_y,
-                                               k_density=ej.bdy.N // 2,
-                                               max_stride=1)
-    return jbie
-
-
 def _fields(out):
     """Every tensor of a solve's output (EmbeddedFunctions or a tuple of
     them), grids and radials."""
@@ -315,20 +280,14 @@ def two_body():
     (__graft_entry__._build_problem's geometry) in both packages from one
     saved collection; ipde_tpu on its dense grid backend, unsharded."""
     nb, M = 64, 6
-    bdy = jstar(nb, a=0.1, f=3)
-    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
-    jc = JEBC([JEB(bdy, True, M, bh, qfs_tolerance=1e-12),
-               JEB(jstar(nb, x=0.0, y=0.0, r=0.22, a=0.05, f=4), False, M,
-                   bh, qfs_tolerance=1e-12)])
-    jc.generate_grid(bh)
-    js = JPS(jc, grid_backend="dense")
-    jf = JEF.from_function(jc, frc)
-    jue = _plans_as_port(JDBIE(js)).apply_bc(js(jf, **SOLVE),
-                                              JBF.from_function(jc, sol))
-    tc = load_collection(jc.save(), "cpu")
-    tc.generate_grid(bh)
+    bodies = (tt.body(nb, M, a=0.1, f=3),
+              tt.body(nb, M, False, x=0.0, y=0.0, r=0.22, a=0.05, f=4))
+    bh = tt.one_body_h(bodies[0])
+    _, tc = tt.paired_collections(bodies, bh)
+    ref = tt.reference_solve(bodies, bh, "poisson", (frc,), (sol,),
+                             port_plans=True)
     ts = PoissonSolver(tc)
-    return dict(jue=jue, ts=ts, bie=DirichletBIE(ts),
+    return dict(jue=ref["jue"], ts=ts, bie=DirichletBIE(ts),
                 f=EmbeddedFunction.from_function(tc, frc),
                 bc=BoundaryFunction.from_function(tc, sol))
 
@@ -460,12 +419,6 @@ def test_dryrun_multichip_cpu():
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
-
-def _cards():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-
 
 def _round_robin(cards, n=4):
     return make_mesh(devices=[cards[i % len(cards)] for i in range(n)])

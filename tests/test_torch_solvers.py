@@ -13,7 +13,6 @@ are stated where they are used."""
 import inspect
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -21,19 +20,14 @@ import numpy as np
 import pytest
 import torch
 
-import ipde_tpu.native
-from ipde_tpu.functions import BoundaryFunction as JBF
-from ipde_tpu.functions import EmbeddedFunction as JEF
-from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
-from ipde_tpu.geometry.curve import star as jstar
-from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
+import _torch_testing as tt
+from _torch_testing import SOLVE, as_np as _np, rel as _rel
+from _torch_testing import one_torch_thread  # noqa: F401
+from _torch_testing import pfrc as frc, psol as sol
 from ipde_tpu.ops import kernels as jkernels
 from ipde_tpu.solvers import annular_scalar as jann
-from ipde_tpu.solvers.bie import DirichletBIE as JBIE
-from ipde_tpu.solvers.scalar import PoissonSolver as JPS
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
-from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
-                                                load_collection)
+from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
 from ipde_tpu_torch.geometry.curve import star
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import kernels
@@ -43,73 +37,25 @@ from ipde_tpu_torch.solvers.scalar import PoissonSolver, ScalarSolver
 
 ROOT = Path(__file__).resolve().parents[1]
 NB, M = 128, 8
-SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module.  The tier-1 command runs six
-    workers on eight cores, where torch's OpenMP threads oversubscribe the
-    CPU: the port's CPU paths here then run several times slower than on
-    one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-def sol(x, y):
-    return -np.cos(x) * np.exp(np.sin(x)) * np.sin(y)
-
-
-def frc(x, y):
-    return ((2.0 * np.cos(x) + 3.0 * np.cos(x) * np.sin(x) - np.cos(x) ** 3)
-            * np.exp(np.sin(x)) * np.sin(y))
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _rel(got, want):
-    got, want = _np(got), _np(want)
-    assert got.shape == want.shape
-    return np.abs(got - want).max() / np.abs(want).max()
+ENTRY = (tt.body(NB, M, a=0.1, f=3),)
 
 
 def _mms_err(ebdyc, ue):
-    e = ebdyc.ebdys[0]
-    g = np.abs(_np(ue.grid) - sol(ebdyc.grid.xg, ebdyc.grid.yg))[ebdyc.phys]
-    r = np.abs(_np(ue.radials[0]) - sol(e.radial_x, e.radial_y))
-    return max(g.max(), r.max())
+    return tt.mms_err(ebdyc, ue, sol)
 
 
 @pytest.fixture(scope="module")
 def problem():
     """entry()'s problem solved by ipde_tpu (dense grid backend), and the
     port's solver and BIE built from the saved geometry."""
-    for _ in range(20):   # see test_torch_geometry.pair
-        if ipde_tpu.native.get_lib() is not None:
-            break
-        time.sleep(0.5)
-    assert ipde_tpu.native.get_lib() is not None
-    bdy = jstar(NB, a=0.1, f=3)
-    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
-    jc = JEBC([JEB(bdy, True, M, bh, qfs_tolerance=1e-12)])
-    jc.generate_grid(bh)
-    jf, jbc = JEF.from_function(jc, frc), JBF.from_function(jc, sol)
-    js = JPS(jc, grid_backend="dense")
-    jb = JBIE(js)
-    jue_raw, jst = js.solve_with_stats(jf, **SOLVE)
-    jue = jb.apply_bc(jue_raw, jbc)
-    tc = load_collection(jc.save(), "cpu")
-    tc.generate_grid(bh)
-    ts = PoissonSolver(tc, grid_backend="dense")
-    tb = DirichletBIE(ts)
-    return dict(jc=jc, js=js, jb=jb, jf=jf, jbc=jbc, jue_raw=jue_raw,
-                jue=jue, jst=jst, tc=tc, ts=ts, tb=tb,
+    h = tt.one_body_h(ENTRY[0])
+    jc, tc = tt.paired_collections(ENTRY, h)
+    ref = tt.reference_solve(ENTRY, h, "poisson", (frc,), (sol,))
+    jf = ref["jf"][0]
+    return dict(jc=jc, js=ref["js"], jb=ref["jb"], jf=jf,
+                jbc=ref["jbc"][0], jue_raw=ref["jraw"], jue=ref["jue"],
+                jst=ref["jst"], tc=tc, ts=tt.port_solver(ENTRY, h, "poisson"),
+                tb=tt.port_bie(ENTRY, h, "poisson"),
                 tf=EmbeddedFunction.load(jf.save(), "cpu"),
                 tbc=BoundaryFunction.from_function(tc, sol))
 

@@ -17,28 +17,28 @@ Pallas kernel (near-coincident rows have |p| ~ 1e2); bit-equal for host
 numpy forms; 1e-13 relative to the largest value for single operator
 applies (the same float64 sums in another order)."""
 
+import copy
 import inspect
+
 import numpy as np
 import pytest
 import torch
 
 import jax.numpy as jnp
-from ipde_tpu.functions import BoundaryFunction as JBF
-from ipde_tpu.functions import EmbeddedFunction as JEF
-from ipde_tpu.geometry.collection import EmbeddedBoundaryCollection as JEBC
+import _torch_testing as tt
+from _torch_testing import SOLVE, as_np as _np, ds_round, rel as _rel
+from _torch_testing import cuda_or_skip as _cuda
+from _torch_testing import fuf, fvf, usol, vsol
+from _torch_testing import one_torch_thread  # noqa: F401
 from ipde_tpu.geometry.curve import star as jstar
-from ipde_tpu.geometry.embedded_boundary import EmbeddedBoundary as JEB
 from ipde_tpu.ops import fourier as jfourier
 from ipde_tpu.ops import interp as jinterp
 from ipde_tpu.ops import pallas_ds
 from ipde_tpu.ops import stokes_kernels as jsk
 from ipde_tpu.ops.cx import Cx
 from ipde_tpu.solvers import annular_stokes as jann
-from ipde_tpu.solvers.bie import StokesDirichletBIE as JSBIE
-from ipde_tpu.solvers.vector import StokesSolver as JSS
 from ipde_tpu_torch.functions import BoundaryFunction, EmbeddedFunction
-from ipde_tpu_torch.geometry.collection import (EmbeddedBoundaryCollection,
-                                                load_collection)
+from ipde_tpu_torch.geometry.collection import EmbeddedBoundaryCollection
 from ipde_tpu_torch.geometry.curve import star
 from ipde_tpu_torch.geometry.embedded_boundary import EmbeddedBoundary
 from ipde_tpu_torch.ops import fourier, interp
@@ -49,56 +49,7 @@ from ipde_tpu_torch.solvers.scalar import PoissonSolver
 from ipde_tpu_torch.solvers.vector import StokesSolver
 
 NB, M = 128, 8
-SOLVE = dict(tol=1e-12, maxiter=60, restart=30)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One torch thread for this module.  The tier-1 command runs six
-    workers on eight cores, where torch's OpenMP threads oversubscribe the
-    CPU: the port's CPU paths here then run several times slower than on
-    one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        yield
-    finally:
-        torch.set_num_threads(n)
-
-
-# the manufactured solution of bench.py (BENCH_PDE=stokes)
-def usol(x, y):
-    return np.sin(x) * np.cos(y) + 0.2 * np.cos(2 * y)
-
-
-def vsol(x, y):
-    return -np.cos(x) * np.sin(y) + 0.1 * np.sin(2 * x)
-
-
-def fuf(x, y):
-    return (2 * np.sin(x) * np.cos(y) + 0.8 * np.cos(2 * y)
-            - np.sin(x) * np.sin(y))
-
-
-def fvf(x, y):
-    return (-2 * np.cos(x) * np.sin(y) + 0.4 * np.sin(2 * x)
-            + np.cos(x) * np.cos(y))
-
-
-def _np(a):
-    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
-
-
-def _rel(got, want):
-    got, want = _np(got), _np(want)
-    assert got.shape == want.shape
-    return np.abs(got - want).max() / np.abs(want).max()
-
-
-def _ds_round(x):
-    hi = x.astype(np.float32).astype(np.float64)
-    lo = (x - hi).astype(np.float32).astype(np.float64)
-    return hi + lo
+STAR = (tt.body(NB, M, a=0.1, f=5),)
 
 
 def _cloud(T=700, S=300, seed=2, near=True):
@@ -117,7 +68,7 @@ def _cloud(T=700, S=300, seed=2, near=True):
         ty[:k] = sy[:k] + 10.0 ** rng.uniform(-4, -2, k)
     qx = rng.standard_normal(S) / S
     qy = np.random.default_rng(seed + 1).standard_normal(S) / S
-    return tuple(_ds_round(a) for a in (sx, sy, qx, qy, tx, ty))
+    return tuple(ds_round(a) for a in (sx, sy, qx, qy, tx, ty))
 
 
 def _uvp_err(got, want):
@@ -287,22 +238,15 @@ def test_hybrid_interp_matches_reference():
 def problem():
     """star(128, a=0.1, f=5), M=8 solved by ipde_tpu (dense grid backend),
     and the port's solver and BIE built from the saved geometry."""
-    bdy = jstar(NB, a=0.1, f=5)
-    bh = min(bdy.min_h(), 0.6 / np.abs(bdy.curvature).max() / M)
-    jc = JEBC([JEB(bdy, True, M, bh, qfs_tolerance=1e-12)])
-    jc.generate_grid(bh)
-    jfu, jfv = JEF.from_function(jc, fuf), JEF.from_function(jc, fvf)
-    jbu, jbv = JBF.from_function(jc, usol), JBF.from_function(jc, vsol)
-    js = JSS(jc, grid_backend="dense")
-    jb = JSBIE(js)
-    jraw, jst = js.solve_with_stats(jfu, jfv, **SOLVE)
-    juvp = jb.apply_bc(*jraw, jbu, jbv)
-    tc = load_collection(jc.save(), "cpu")
-    tc.generate_grid(bh)
-    ts = StokesSolver(tc, grid_backend="dense")
-    tb = StokesDirichletBIE(ts)
-    return dict(jc=jc, js=js, jb=jb, jraw=jraw, jst=jst, juvp=juvp, tc=tc,
-                ts=ts, tb=tb, tfu=EmbeddedFunction.load(jfu.save(), "cpu"),
+    h = tt.one_body_h(STAR[0])
+    jc, tc = tt.paired_collections(STAR, h)
+    ref = tt.reference_solve(STAR, h, "stokes", (fuf, fvf), (usol, vsol))
+    jfu, jfv = ref["jf"]
+    return dict(jc=jc, js=ref["js"], jb=ref["jb"], jraw=ref["jraw"],
+                jst=ref["jst"], juvp=ref["jue"], tc=tc,
+                ts=tt.port_solver(STAR, h, "stokes"),
+                tb=tt.port_bie(STAR, h, "stokes"),
+                tfu=EmbeddedFunction.load(jfu.save(), "cpu"),
                 tfv=EmbeddedFunction.load(jfv.save(), "cpu"),
                 tbu=BoundaryFunction.from_function(tc, usol),
                 tbv=BoundaryFunction.from_function(tc, vsol))
@@ -387,28 +331,26 @@ def test_stratified_apply_three_outputs(problem):
 @pytest.mark.parametrize("hybrid", [False, True])
 def test_radial_to_grid_many(problem, hybrid):
     jc, tc = problem["jc"], problem["tc"]
-    saved = jc.radial_to_grid_plans, tc.radial_to_grid_plans
     if hybrid:
         # the same targets through HybridInterp2D on both sides (the class
-        # the bench geometry's radial plan routes to)
+        # the bench geometry's radial plan routes to), on copies of the
+        # shared collections
         e, reg = tc.ebdys[0], tc.regs[0]
         args = (2 * M, NB, e.nufft_theta(reg.ia_r), reg.ia_t)
         off = np.pi / (2 * M)
+        jc, tc = copy.copy(jc), copy.copy(tc)
         jc.radial_to_grid_plans = [jinterp.HybridInterp2D(*args,
                                                           x_offset=off)]
         tc.radial_to_grid_plans = [interp.HybridInterp2D(
             *args, x_offset=off, device="cpu")]
-    try:
-        rng = np.random.default_rng(25)
-        rads = rng.standard_normal((3, M, NB))
-        grids = rng.standard_normal((3,) + tc.grid.shape)
-        want = jc.interpolate_radial_to_grid_many(
-            [[jnp.asarray(r)] for r in rads], [jnp.asarray(g) for g in grids])
-        got = tc.interpolate_radial_to_grid_many(
-            [[torch.as_tensor(r)] for r in rads],
-            [torch.as_tensor(g) for g in grids])
-    finally:
-        jc.radial_to_grid_plans, tc.radial_to_grid_plans = saved
+    rng = np.random.default_rng(25)
+    rads = rng.standard_normal((3, M, NB))
+    grids = rng.standard_normal((3,) + tc.grid.shape)
+    want = jc.interpolate_radial_to_grid_many(
+        [[jnp.asarray(r)] for r in rads], [jnp.asarray(g) for g in grids])
+    got = tc.interpolate_radial_to_grid_many(
+        [[torch.as_tensor(r)] for r in rads],
+        [torch.as_tensor(g) for g in grids])
     for g, w in zip(got, want):
         assert _rel(g, w) < 1e-13
 
@@ -479,8 +421,9 @@ def test_unported_options_raise(problem):
             make(tc, grid_backend="dense", solver_type="sixth")
     # several boundaries and an inclusion are ported: such collections now
     # build a solver (tests/test_torch_multi_stokes.py solves them), and so
-    # does solver_type "fourth" (tests/test_torch_fourth.py solves it)
-    e = tc.ebdys[0]
+    # does solver_type "fourth" (tests/test_torch_fourth.py solves it); a
+    # copy of the boundary, which the new collection registers on its grid
+    e = copy.deepcopy(tc.ebdys[0])
     inner = star(64, x=0.05, y=0.0, r=0.3, a=0.05, f=3)
     other = EmbeddedBoundaryCollection(
         [e, EmbeddedBoundary(inner, False, 4, e.h)], device="cpu")
@@ -559,12 +502,6 @@ def test_port_mms_nb600():
 # ---------------------------------------------------------------------------
 # on the card (marker gpu)
 # ---------------------------------------------------------------------------
-
-def _cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (torch.cuda.is_available() is False)")
-    return torch.device("cuda", 0)
-
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("T,S,seed", [(700, 300, 2), (70001, 3001, 4),

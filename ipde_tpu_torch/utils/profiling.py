@@ -41,6 +41,10 @@ The port's spans (parent > children) and counters:
   planify.graphs (count)   graphs replayed
   interp.phase_entries (count)  entries of the interpolation plans' phase
                            matrices built (``ops/interp.py::phase_matrix``)
+  stratified.search_pairs (count)  (target, source) pairs of the distance
+                           searches that set the radial plans' strides
+                           (``ops/stratified.py``), on the plans' device;
+                           0 for a plan whose rows cannot subsample
   plan.capacity_overflow (count)  plan tensors of a padded registration
                            whose used size passed their capacity
                            (``utils/planify.py::capacity``): each one a
